@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Run the PyTorch/CUDA port's bundle-adjustment back end once on an NVIDIA GPU.
+"""Run the PyTorch/CUDA port's main paths once on an NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -8,8 +8,9 @@ it imports no JAX. Phases, each reported on its own line:
 
 1. device: the card's name and power limit (from ``nvidia-smi``), the
    torch and CUDA versions; no CUDA device is a failure, never a CPU run;
-2. build: compiles ``libwave_tpu_torch/csrc/segmm_g_a.cu`` for sm_90a and
-   loads it;
+2. build: compiles ``libwave_tpu_torch/csrc/segmm_g_a.cu`` and
+   ``libwave_tpu_torch/csrc/hamming.cu`` for sm_90a, one nvcc each, started
+   together, and loads them;
 3. kernel: the G/A kernel against its plain PyTorch version on the card, at
    each band call of the headline problem's first linearization and on edge
    cases (duplicate ids, ids -1 and >= M, Pmax = 37, M = 1000), within
@@ -22,7 +23,24 @@ it imports no JAX. Phases, each reported on its own line:
    CUDA call that PyTorch's sync debug mode detects, give finite costs that
    end below the initial cost, and follow the trajectory of the same solve
    with the plain G/A forced on the card (rtol 1e-3). Then LM iterations/s for
-   both, and a small f64 problem solved on the card against the CPU.
+   both, and a small f64 problem solved on the card against the CPU;
+5. hamming: both Hamming kernels against their plain versions on the card,
+   exactly equal (integer outputs), at the frame's 512 x 512 x 16, at an
+   unaligned 300 x 700 x 8 with ties, mask zeros, an all-masked bank and a
+   single live column, the top-2 at 16,384^2 x 16 and the table at
+   4,096^2 x 16; each timed against its plain version with CUDA events;
+6. pair: ``bench.py``'s two-frame pair (480x640 blobs and their (4, 7) roll,
+   FAST-512, BRISK, knn ratio + RANSAC) on the card: one top-2 launch per
+   pair, pairs/s with the kernel and with the plain top-2; then the same pair
+   through the distance heuristic with cross check, one table launch per
+   pair, the same matches as with the plain table;
+7. sequence: the 25 EuRoC-resolution (752x480) frames of ``bench.py``'s
+   front-end benchmark through ``track_sequence`` with ``FrontendParams()``:
+   25 top-2 launches, tracks identical to the run with the plain top-2,
+   contiguous tracks of mean length >= 3, rows and ids within 10% of the JAX
+   package's figures on the same frames, frames/s for both runs, ms per
+   frame by layer, and the synchronizing calls of one frame step (none
+   allowed outside RANSAC's ``torch.linalg`` calls).
 
 The line before the last is a JSON object describing each kernel; the last
 line is ``{"ok": true, "device": {...}}``. Any failed phase raises and the
@@ -31,7 +49,10 @@ script exits non-zero without that line.
 
 from __future__ import annotations
 
+import collections
+import concurrent.futures
 import dataclasses
+import inspect
 import json
 import subprocess
 import sys
@@ -44,17 +65,32 @@ import numpy as np
 import torch
 
 import libwave_tpu_torch
-from libwave_tpu_torch import bench_problem
-from libwave_tpu_torch.ops import segmm
+from libwave_tpu_torch import bench_frontend, bench_problem
+from libwave_tpu_torch.ops import hamming, segmm
 from libwave_tpu_torch.optim import ba, schur
+from libwave_tpu_torch.pipelines import visual_frontend
 from libwave_tpu_torch.utils import precision
+from libwave_tpu_torch.vision import matcher
+from libwave_tpu_torch.vision.descriptor import brisk_describe
+from libwave_tpu_torch.vision.detector import FASTParams, detect_fast
+from libwave_tpu_torch.vision.tracker import add_image_features, tracker_init
 
 HERE = Path(__file__).resolve().parent
 KERNEL_SOURCE = "libwave_tpu_torch/csrc/segmm_g_a.cu"
 KERNEL_REPLACES = "libwave_tpu/ops/segmm.py:190"
+HAMMING_SOURCE = "libwave_tpu_torch/csrc/hamming.cu"
+TOP2_REPLACES = "libwave_tpu/ops/hamming.py:103"
+TABLE_REPLACES = "libwave_tpu/ops/hamming.py:27"
 LM_ITERS = 10
 BAND_CALLS = 13  # band plan entries x pose runs of the headline problem
 REL_TOL = 1e-6
+# The JAX package's track_sequence(frames, FrontendParams()) on the same 25
+# frames (bench_frontend.make_euroc_frames(), bit-identical to its PNGs), run
+# on a CPU with jax_enable_x64 in its default (scan) mode: 1,435 track rows,
+# 373 landmark ids, mean track length 3.847. The card has no JAX.
+JAX_TRACK_ROWS = 1435
+JAX_TRACK_IDS = 373
+SEQUENCE_FRAMES = 25
 
 
 class SmokeFailure(RuntimeError):
@@ -86,14 +122,23 @@ def phase_device():
     return name, smi
 
 
-def phase_build():
+def _timed_build(build):
     t0 = time.perf_counter()
-    log = segmm.build()
-    dt = time.perf_counter() - t0
-    print(f"build: {KERNEL_SOURCE} built for sm_90a and loaded in {dt:.3f} s")
-    for line in log.splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"build: ptxas: {line.strip()}")
+    log = build()
+    return log, time.perf_counter() - t0
+
+
+def phase_build():
+    """One nvcc per source, all started together."""
+    builds = ((KERNEL_SOURCE, segmm.build), (HAMMING_SOURCE, hamming.build))
+    with concurrent.futures.ThreadPoolExecutor(len(builds)) as pool:
+        futures = [pool.submit(_timed_build, b) for _, b in builds]
+        results = [f.result() for f in futures]
+    for (source, _), (log, dt) in zip(builds, results):
+        print(f"build: {source} built for sm_90a and loaded in {dt:.3f} s")
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"build: ptxas: {line.strip()}")
 
 
 def _compare(case, G, A, Gr, Ar, worst):
@@ -310,6 +355,299 @@ def phase_small_reference(dev):
           f"{' '.join(f'{c:.9e}' for c in out['cuda'])}")
 
 
+def _frame_bank(frame, dev, params=FASTParams(threshold=20.0, num_features=512)):
+    img = torch.as_tensor(frame, device=dev).to(torch.float32)
+    xy, _, m = detect_fast(img, params)
+    desc, m = brisk_describe(img, xy, m)
+    return xy, desc, m
+
+
+def _hamming_cases(frames, dev):
+    """(name, d1, d2, mask2) int32 banks on the card. The frame case is two
+    consecutive frames' BRISK banks, as the tracker matches them."""
+    rng = np.random.default_rng(2)
+
+    def bank(n, w):
+        words = rng.integers(0, 2**32, (n, w), dtype=np.uint64)
+        return words.astype(np.uint32).view(np.int32)
+
+    def t(a):
+        return torch.as_tensor(a, device=dev)
+
+    _, d_prev, _ = _frame_bank(frames[0], dev)
+    _, d_curr, m_curr = _frame_bank(frames[1], dev)
+    d2 = bank(700, 8)
+    d2[500:] = d2[:200]  # duplicate reference rows: ties at the best
+    d1 = np.concatenate([d2[:100], bank(200, 8)])
+    mask = rng.random(700) < 0.7
+    one = np.zeros(700, bool)
+    one[333] = True
+    big2 = bank(16384, 16)
+    big1 = big2[rng.permutation(16384)].copy()
+    big1 ^= (rng.random(big1.shape) < 0.05).astype(np.int32) << 7  # near copies
+    return {
+        "both": [
+            ("frame 512x512x16", d_prev, d_curr, m_curr),
+            ("300x700x8 ties, mask zeros", t(d1), t(d2), t(mask)),
+            ("300x700x8 all masked", t(d1), t(d2), t(np.zeros(700, bool))),
+            ("300x700x8 one live column", t(d1), t(d2), t(one)),
+        ],
+        "top2": ("16384x16384x16", t(big1), t(big2), None),
+        "table": ("4096x4096x16", t(big1[:4096]), t(big2[:4096]), None),
+    }
+
+
+def _exact(case, got, ref, stats):
+    """Integer outputs: count mismatches and the largest difference."""
+    for g, r in zip(got, ref):
+        diff = (g.to(torch.int64) - r.to(torch.int64)).abs()
+        stats["mismatches"] += int((diff != 0).sum())
+        stats["max_abs_err"] = max(stats["max_abs_err"], float(diff.max()))
+    check(stats["mismatches"] == 0,
+          f"{case}: kernel and plain version differ in {stats['mismatches']} "
+          f"entries (max abs err {stats['max_abs_err']:g})")
+
+
+def phase_hamming(frames, dev, smi):
+    cases = _hamming_cases(frames, dev)
+    out = {k: {"mismatches": 0, "max_abs_err": 0.0} for k in ("top2", "table")}
+    for name, d1, d2, m2 in cases["both"] + [cases["top2"]]:
+        got = hamming.hamming_top2(d1, d2, m2)
+        ref = hamming.hamming_top2_reference(d1, d2, m2)
+        torch.cuda.synchronize()
+        _exact(f"top-2 {name}", got, ref, out["top2"])
+    for name, d1, d2, m2 in cases["both"] + [cases["table"]]:
+        got = hamming.hamming_distance(d1, d2)
+        ref = hamming.hamming_distance_reference(d1, d2)
+        torch.cuda.synchronize()
+        _exact(f"table {name}", (got,), (ref,), out["table"])
+    names = ", ".join(c[0] for c in cases["both"])
+    print(f"hamming: top-2 and table kernels equal their plain versions "
+          f"exactly at {names}, top-2 {cases['top2'][0]}, table "
+          f"{cases['table'][0]}")
+
+    frame = cases["both"][0][1:]
+    timings = (
+        ("top2", "frame 512x512x16", frame, 50, 50),
+        ("top2", cases["top2"][0], cases["top2"][1:], 5, 1),
+        ("table", "frame 512x512x16", frame[:2], 50, 50),
+        ("table", cases["table"][0], cases["table"][1:3], 10, 2),
+    )
+    fns = {"top2": (hamming.hamming_top2, hamming.hamming_top2_reference),
+           "table": (hamming.hamming_distance,
+                     hamming.hamming_distance_reference)}
+    for which, name, ops, reps, plain_reps in timings:
+        kern, plain = fns[which]
+        ms = _time_calls(kern, [ops], reps)
+        plain_ms = _time_calls(plain, [ops], plain_reps)
+        if name.startswith("frame"):
+            out[which]["ms"], out[which]["plain_ms"] = ms, plain_ms
+        print(f"hamming: {which} {name}: {ms:.4f} ms (kernel) vs "
+              f"{plain_ms:.4f} ms (plain), CUDA events | {smi}")
+    return out
+
+
+def _top2(plain):
+    """Route the matcher's top-2 to the kernel or to the plain version."""
+    return mock.patch.object(
+        hamming, "hamming_top2",
+        hamming.hamming_top2_reference if plain else hamming.hamming_top2,
+    )
+
+
+def _table(plain):
+    """Route the matcher's distance table to the kernel or the plain one."""
+    return mock.patch.object(
+        hamming, "hamming_distance",
+        hamming.hamming_distance_reference if plain else hamming.hamming_distance,
+    )
+
+
+def phase_pair(dev, smi):
+    img1, img2 = (torch.as_tensor(a, device=dev)
+                  for a in bench_frontend.pair_images(0))
+    fast_p = FASTParams(num_features=512)
+
+    def pair(mp):
+        gen = torch.Generator(device=dev).manual_seed(0)
+        xy1, _, m1 = detect_fast(img1, fast_p)
+        xy2, _, m2 = detect_fast(img2, fast_p)
+        d1, _ = brisk_describe(img1, xy1, m1)
+        d2, _ = brisk_describe(img2, xy2, m2)
+        _, valid, diag = matcher.match_descriptors(
+            d1, d2, xy1, xy2, m1, m2, gen, mp)
+        return diag["num_good_matches"], valid
+
+    knn = matcher.MatcherParams()
+    reps = 20
+    rates, good = {}, {}
+    for which in ("kernel", "plain"):
+        with _top2(which == "plain"):
+            hamming.hamming_top2.launches = 0
+            dt, (n_good, valid) = bench_frontend.time_call(pair, knn, reps=reps)
+            launches = hamming.hamming_top2.launches
+        want = reps + 1 if which == "kernel" else 0
+        check(launches == want, f"pair ({which} top-2): {launches} top-2 "
+              f"kernel launches in {reps + 1} pairs, expected {want}")
+        rates[which], good[which] = 1.0 / dt, (int(n_good), valid.cpu())
+    check(good["kernel"][0] >= 50 and torch.equal(good["kernel"][1],
+                                                   good["plain"][1]),
+          f"pair: {good['kernel'][0]} good matches with the kernel, "
+          f"{good['plain'][0]} with the plain top-2")
+    for which, note in (("kernel", ", one top-2 launch per pair"),
+                        ("plain", "")):
+        print(f"pair: 480x640 blob pair, FAST-512 + BRISK + knn ratio + "
+              f"RANSAC: {good[which][0]} good matches, {rates[which]:.3f} "
+              f"pairs/s with the {which} top-2{note} | {smi}")
+
+    heur = matcher.MatcherParams(use_knn=False, cross_check=True)
+    hamming.hamming_distance.launches = 0
+    n_good, valid = pair(heur)
+    table_launches = hamming.hamming_distance.launches
+    check(table_launches == 1,
+          f"pair (distance heuristic): {table_launches} table launches")
+    with _table(plain=True):
+        n_plain, valid_plain = pair(heur)
+    check(hamming.hamming_distance.launches == 1
+          and torch.equal(valid, valid_plain),
+          "pair (distance heuristic): kernel and plain table disagree")
+    print(f"pair: the same pair through the distance heuristic with cross "
+          f"check: 1 table kernel launch, {int(n_good)} good matches, the "
+          f"same as with the plain table")
+    return table_launches
+
+
+def _track(frames, dev, plain):
+    gen = torch.Generator(device=dev).manual_seed(0)
+    with _top2(plain):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tracks = visual_frontend.track_sequence(
+            frames, params=visual_frontend.FrontendParams(), generator=gen,
+            device=dev)
+        dt = time.perf_counter() - t0  # the tracks are on the host
+    return tracks, dt
+
+
+def _median_ms(fn, reps=20):
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return 1e3 * float(np.median(times))
+
+
+def _frame_layers(frames, dev, smi):
+    """ms per frame of each layer of one tracker step (frame 1 after frame
+    0), CUDA-synchronized host clock, median of 20."""
+    params = visual_frontend.FrontendParams()
+    tp = params.tracker
+    gen = torch.Generator(device=dev).manual_seed(0)
+    state = tracker_init(tp, visual_frontend._desc_words(params), device=dev)
+    img0 = torch.as_tensor(frames[0], device=dev)
+    img1 = torch.as_tensor(frames[1], device=dev)
+    state = visual_frontend._frontend_step(state, img0, 0.0, gen, params)
+    img = img1.to(torch.float32)
+    xy, _, m = detect_fast(img, params.fast)
+    desc, m = brisk_describe(img, xy, m, params.brisk)
+    best, second, idx2 = hamming.hamming_top2(state.prev_desc, desc, m)
+    valid = (best.float() <= tp.matcher.ratio_threshold * second.float()) & \
+        (best < hamming.BIG) & state.prev_mask
+    p2 = xy[idx2.long()]
+    layers = {
+        "detect": lambda: detect_fast(img, params.fast),
+        "describe": lambda: brisk_describe(img, xy, m, params.brisk),
+        "top-2 match": lambda: hamming.hamming_top2(state.prev_desc, desc, m),
+        "RANSAC": lambda: matcher.find_fundamental_ransac(
+            state.prev_xy, p2, valid, gen),
+        "tracker update (match + RANSAC + ids + buffer)":
+            lambda: add_image_features(state, xy, desc, m, 1.0, gen, tp),
+        "whole frame step": lambda: visual_frontend._frontend_step(
+            state, img1, 1.0, gen, params),
+    }
+    parts = [f"{k} {_median_ms(fn):.3f}" for k, fn in layers.items()]
+    print(f"sequence: ms per 752x480 frame by layer: {'; '.join(parts)} | "
+          f"{smi}")
+    return state, img1
+
+
+def _sync_sites(state, img, dev):
+    """Synchronizing calls that PyTorch's sync debug mode sees in one frame
+    step, as {file:line: count}."""
+    params = visual_frontend.FrontendParams()
+    gen = torch.Generator(device=dev).manual_seed(1)
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            visual_frontend._frontend_step(state, img, 1.0, gen, params)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return collections.Counter(
+        f"{Path(w.filename).name}:{w.lineno}" for w in caught
+        if "called a synchronizing CUDA operation" in str(w.message)
+    )
+
+
+def phase_sequence(frames, dev, smi):
+    hamming.hamming_top2.launches = 0
+    tracks, _ = _track(frames, dev, plain=False)
+    launches = hamming.hamming_top2.launches
+    check(launches == SEQUENCE_FRAMES,
+          f"sequence: {launches} top-2 launches in {SEQUENCE_FRAMES} frames")
+    tracks_p, _ = _track(frames, dev, plain=True)
+    check(hamming.hamming_top2.launches == launches,
+          "sequence: the plain run launched the top-2 kernel")
+    check(np.array_equal(tracks, tracks_p),
+          f"sequence: tracks with the kernel ({len(tracks)} rows) and with "
+          f"the plain top-2 ({len(tracks_p)} rows) differ")
+    check(np.isfinite(tracks).all(), "sequence: non-finite track rows")
+    ids = np.unique(tracks[:, 1])
+    lengths = np.bincount(tracks[:, 1].astype(int))
+    lengths = lengths[lengths > 0]
+    longest = tracks[tracks[:, 1] == ids[np.argmax(lengths)]]
+    check((np.diff(np.sort(longest[:, 0].astype(int))) == 1).all(),
+          "sequence: the longest track skips frames")
+    check(lengths.mean() >= 3.0,
+          f"sequence: mean track length {lengths.mean():.3f} < 3")
+    for what, got, ref in (("track rows", len(tracks), JAX_TRACK_ROWS),
+                           ("landmark ids", len(ids), JAX_TRACK_IDS)):
+        check(abs(got - ref) <= 0.1 * max(got, ref),
+              f"sequence: {got} {what} against the JAX package's {ref}")
+    print(f"sequence: {SEQUENCE_FRAMES} frames 752x480, FrontendParams(): "
+          f"{launches} top-2 kernel launches, tracks identical to the plain "
+          f"top-2 run: {len(tracks)} track rows (JAX {JAX_TRACK_ROWS}), "
+          f"{len(ids)} ids (JAX {JAX_TRACK_IDS}), mean length "
+          f"{lengths.mean():.3f}, longest {lengths.max()} contiguous frames")
+    rates = {"kernel": [], "plain": []}
+    for which in ("kernel", "plain", "plain", "kernel"):
+        _, dt = _track(frames, dev, plain=which == "plain")
+        rates[which].append(SEQUENCE_FRAMES / dt)
+    for which in ("kernel", "plain"):
+        r = rates[which]
+        print(f"sequence: {np.mean(r):.3f} frames/s with the {which} top-2 "
+              f"(runs {r[0]:.3f}, {r[1]:.3f}), whole track_sequence incl. "
+              f"upload and track export | {smi}")
+    state, img = _frame_layers(frames, dev, smi)
+    sites = _sync_sites(state, img, dev)
+    src = Path(inspect.getsourcefile(matcher))
+    allowed = {f"{src.name}:{i}" for i, line in
+               enumerate(src.read_text().splitlines(), 1)
+               if "torch.linalg." in line}
+    listed = ", ".join(f"{k} x{v}" for k, v in sorted(sites.items())) or "none"
+    print(f"sequence: synchronizing calls in one frame step: {listed}")
+    stray = sorted(set(sites) - allowed)
+    check(not stray, f"sequence: synchronizing calls outside RANSAC's "
+          f"torch.linalg calls: {stray}")
+    return launches
+
+
 def main():
     name, smi = phase_device()
     phase_build()
@@ -323,6 +661,16 @@ def main():
     worst, ms, plain_ms = phase_kernel(problem, state, cfg)
     launches = phase_headline(problem, state, cfg, smi)
     phase_small_reference(dev)
+    del problem, state
+    t0 = time.perf_counter()
+    frames = bench_frontend.make_euroc_frames()
+    check(frames.shape == (SEQUENCE_FRAMES, 480, 752),
+          f"EuRoC frames have shape {frames.shape}")
+    print(f"frames: {SEQUENCE_FRAMES} EuRoC cam0 frames (752x480, 400 "
+          f"landmarks, seed 0) rendered in {time.perf_counter() - t0:.3f} s")
+    ham = phase_hamming(frames, dev, smi)
+    table_launches = phase_pair(dev, smi)
+    top2_launches = phase_sequence(frames, dev, smi)
     print(json.dumps({"kernels": [{
         "name": "segmm_g_a",
         "route": "cuda",
@@ -332,6 +680,26 @@ def main():
         "max_abs_err": worst["abs"],
         "ms": ms,
         "plain_ms": plain_ms,
+    }, {
+        "name": "hamming_top2",
+        "route": "cuda",
+        "source": HAMMING_SOURCE,
+        "replaces": TOP2_REPLACES,
+        "launches": top2_launches,
+        "max_abs_err": ham["top2"]["max_abs_err"],
+        "mismatches": ham["top2"]["mismatches"],
+        "ms": ham["top2"]["ms"],
+        "plain_ms": ham["top2"]["plain_ms"],
+    }, {
+        "name": "hamming_table",
+        "route": "cuda",
+        "source": HAMMING_SOURCE,
+        "replaces": TABLE_REPLACES,
+        "launches": table_launches,
+        "max_abs_err": ham["table"]["max_abs_err"],
+        "mismatches": ham["table"]["mismatches"],
+        "ms": ham["table"]["ms"],
+        "plain_ms": ham["table"]["plain_ms"],
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count(),

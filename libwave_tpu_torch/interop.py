@@ -1,18 +1,41 @@
-"""Carry a problem and state from the JAX package into the port.
+"""Carry problems, states and parameters from the JAX package into the port.
 
-:func:`from_jax_numpy` takes ``libwave_tpu``'s ``BAProblem``/``BAState``
-after their array leaves were converted to numpy (on the JAX side,
-``jax.tree.map(np.asarray, (problem, state))``) and returns the port's
-containers on ``device``. It reads fields by name and never imports JAX.
+Each function takes a container of ``libwave_tpu`` after its array leaves
+were converted to numpy (on the JAX side, ``jax.tree.map(np.asarray, x)``)
+and returns the port's container on ``device``. They read fields by name and
+never import JAX.
+
+- :func:`from_jax_numpy`: ``BAProblem``/``BAState``;
+- :func:`landmark_buffer_from_jax_numpy`, :func:`tracker_state_from_jax_numpy`:
+  the front end's ``LandmarkBuffer`` and ``TrackerState``;
+- :func:`desc_from_numpy`/:func:`desc_to_numpy`: descriptor banks, numpy
+  uint32 words <-> the port's int32 words with the same bits;
+- :func:`params_from_jax`: a parameter dataclass, field by field, into the
+  port's dataclass of the same name.
 """
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
+from libwave_tpu_torch.containers.landmark import LandmarkBuffer
 from libwave_tpu_torch.optim import pose_graph, schur
 from libwave_tpu_torch.optim.ba import BAProblem, BAState
+from libwave_tpu_torch.pipelines.visual_frontend import FrontendParams
+from libwave_tpu_torch.vision.descriptor import BRISKParams, ORBDescriptorParams
+from libwave_tpu_torch.vision.detector import FASTParams, ORBDetectorParams
+from libwave_tpu_torch.vision.matcher import MatcherParams
+from libwave_tpu_torch.vision.tracker import TrackerParams, TrackerState
+
+_PARAMS = {
+    cls.__name__: cls
+    for cls in (FASTParams, ORBDetectorParams, BRISKParams,
+                ORBDescriptorParams, MatcherParams, TrackerParams,
+                FrontendParams)
+}
 
 
 def _tensor(x, device, dtype):
@@ -65,3 +88,55 @@ def from_jax_numpy(problem, state, device, dtype=None):
         prior_p=t(problem.prior_p), bands=bands,
     )
     return ported, BAState(q=t(state.q), p=t(state.p), lm=t(state.lm))
+
+
+def desc_from_numpy(desc, device=None) -> torch.Tensor:
+    """(N, W) uint32 descriptor words -> int32 tensor with the same bits."""
+    a = np.ascontiguousarray(np.asarray(desc, dtype=np.uint32))
+    return torch.from_numpy(a.view(np.int32).copy()).to(device)
+
+
+def desc_to_numpy(desc: torch.Tensor) -> np.ndarray:
+    """int32 descriptor words -> (N, W) numpy uint32 with the same bits."""
+    return desc.detach().cpu().contiguous().numpy().view(np.uint32)
+
+
+def landmark_buffer_from_jax_numpy(buf, device=None) -> LandmarkBuffer:
+    """The JAX package's ``LandmarkBuffer`` (numpy leaves) on ``device``."""
+    return LandmarkBuffer(*(
+        torch.from_numpy(np.array(getattr(buf, f))).to(device)
+        for f in LandmarkBuffer._fields
+    ))
+
+
+def tracker_state_from_jax_numpy(state, device=None) -> TrackerState:
+    """The JAX package's ``TrackerState`` (numpy leaves) on ``device``; the
+    uint32 descriptor bank crosses bit for bit as int32."""
+    def t(x):
+        return torch.from_numpy(np.array(x)).to(device)
+
+    return TrackerState(
+        prev_xy=t(state.prev_xy),
+        prev_desc=desc_from_numpy(state.prev_desc, device),
+        prev_mask=t(state.prev_mask),
+        prev_ids=t(state.prev_ids),
+        prev_time=t(state.prev_time),
+        image_count=t(state.image_count),
+        next_id=t(state.next_id),
+        landmarks=landmark_buffer_from_jax_numpy(state.landmarks, device),
+    )
+
+
+def params_from_jax(params):
+    """A front-end parameter dataclass of the JAX package (FASTParams,
+    BRISKParams, MatcherParams, TrackerParams, FrontendParams, the ORB
+    parameters) as the port's dataclass of the same name, field by field;
+    nested parameter dataclasses cross too."""
+    cls = _PARAMS[type(params).__name__]
+    kw = {}
+    for f in dataclasses.fields(params):
+        v = getattr(params, f.name)
+        if dataclasses.is_dataclass(v) and type(v).__name__ in _PARAMS:
+            v = params_from_jax(v)
+        kw[f.name] = v
+    return cls(**kw)

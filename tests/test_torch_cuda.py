@@ -1,13 +1,15 @@
-"""Card-only tests of the port: the G/A CUDA kernel against its plain
-PyTorch version, its input checks, and a small solve through it.
+"""Card-only tests of the port: the G/A and Hamming CUDA kernels against
+their plain PyTorch versions, their input checks, and a small solve and a
+small front-end sequence through them.
 
 Every test here needs a CUDA device and skips without one. The file
 imports no JAX, so on a machine with the card and without JAX it runs as
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
-Kernel and plain version sum the same f32 terms, only the order of
-duplicate-id sums may differ: tolerance 1e-6 * max|plain|.
+G/A kernel and plain version sum the same f32 terms, only the order of
+duplicate-id sums may differ: tolerance 1e-6 * max|plain|. The Hamming
+outputs are integers: exact equality.
 """
 
 import dataclasses
@@ -17,9 +19,10 @@ import numpy as np
 import pytest
 import torch
 
-from libwave_tpu_torch import bench_problem
-from libwave_tpu_torch.ops import segmm
+from libwave_tpu_torch import bench_frontend, bench_problem
+from libwave_tpu_torch.ops import hamming, segmm
 from libwave_tpu_torch.optim import ba, schur
+from libwave_tpu_torch.pipelines import visual_frontend
 
 
 @pytest.fixture
@@ -90,3 +93,81 @@ def test_small_solve_through_kernel(cuda_device):
     costs, costs_p = info["costs"].cpu().numpy(), info_p["costs"].cpu().numpy()
     assert np.isfinite(costs).all() and costs[-1] < float(info["initial_cost"])
     np.testing.assert_allclose(costs, costs_p, rtol=1e-3)
+
+
+def _words(rng, dev, n, w):
+    a = rng.integers(0, 2**32, (n, w), dtype=np.uint64).astype(np.uint32)
+    return torch.as_tensor(a.view(np.int32), device=dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n1,n2,w,masked", [
+    (512, 512, 16, "some"), (300, 700, 8, "some"), (300, 700, 8, "all"),
+    (300, 700, 8, "one"), (129, 257, 4, None), (1, 1, 16, None),
+    (1000, 3, 2, "some"), (70, 600, 32, None),
+])
+def test_hamming_kernels_match_plain(cuda_device, n1, n2, w, masked):
+    rng = np.random.default_rng(n1 + n2 + w)
+    d2 = _words(rng, cuda_device, n2, w)
+    d2[n2 // 2:] = d2[: n2 - n2 // 2].clone()  # duplicate rows: ties
+    d1 = torch.cat([d2[: n1 // 3], _words(rng, cuda_device, n1 - n1 // 3, w)])
+    mask = None
+    if masked == "some":
+        mask = torch.as_tensor(rng.random(n2) < 0.7, device=cuda_device)
+    elif masked == "all":
+        mask = torch.zeros(n2, dtype=torch.bool, device=cuda_device)
+    elif masked == "one":
+        mask = torch.zeros(n2, dtype=torch.bool, device=cuda_device)
+        mask[n2 // 3] = True
+    before = (hamming.hamming_top2.launches, hamming.hamming_distance.launches)
+    got = hamming.hamming_top2(d1, d2, mask)
+    table = hamming.hamming_distance(d1, d2)
+    assert (hamming.hamming_top2.launches,
+            hamming.hamming_distance.launches) == (before[0] + 1, before[1] + 1)
+    ref = hamming.hamming_top2_reference(d1, d2, mask)
+    torch.cuda.synchronize()
+    for g, r in zip(got, ref):
+        assert torch.equal(g, r)
+    assert torch.equal(table, hamming.hamming_distance_reference(d1, d2))
+    if masked == "all":
+        assert (got[0] == hamming.BIG).all() and (got[2] == 0).all()
+
+
+@pytest.mark.cuda
+def test_hamming_kernels_reject_what_they_do_not_take(cuda_device):
+    rng = np.random.default_rng(1)
+    d1, d2 = _words(rng, cuda_device, 8, 16), _words(rng, cuda_device, 9, 16)
+    mask = torch.ones(9, dtype=torch.bool, device=cuda_device)
+    for fn, extra in ((hamming.hamming_top2, (mask,)),
+                      (hamming.hamming_distance, ())):
+        with pytest.raises(TypeError):
+            fn(d1.long(), d2, *extra)
+        with pytest.raises(ValueError, match="device"):
+            fn(d1, d2.cpu(), *extra)
+        with pytest.raises(ValueError, match="contiguous"):
+            fn(d1[:, ::2], d2[:, ::2], *extra)
+        with pytest.raises(ValueError, match="built for W"):
+            fn(d1[:, :3].contiguous(), d2[:, :3].contiguous(), *extra)
+        with pytest.raises(ValueError):
+            fn(d1, d2[:, :8].contiguous(), *extra)
+    with pytest.raises(ValueError, match="mask2"):
+        hamming.hamming_top2(d1, d2, mask.int())
+
+
+@pytest.mark.cuda
+def test_small_sequence_through_top2_kernel(cuda_device):
+    p = bench_frontend.EurocSimParams(
+        duration=1.6, nb_landmarks=120, fx=229.0, fy=228.0, cx=188.0,
+        cy=120.0, width=376, height_px=240,
+    )
+    frames = bench_frontend.make_euroc_frames(p, seed=0)
+    before = hamming.hamming_top2.launches
+    tracks = visual_frontend.track_sequence(frames, device=cuda_device)
+    assert hamming.hamming_top2.launches - before == len(frames)
+    with mock.patch.object(hamming, "hamming_top2",
+                           hamming.hamming_top2_reference):
+        tracks_p = visual_frontend.track_sequence(frames, device=cuda_device)
+    np.testing.assert_array_equal(tracks, tracks_p)
+    cpu = visual_frontend.track_sequence(frames)
+    assert abs(len(tracks) - len(cpu)) <= 0.1 * max(len(tracks), len(cpu))
+    assert len(tracks) >= 60

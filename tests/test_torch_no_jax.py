@@ -33,6 +33,10 @@ import chip_smoke
 assert not [m for m in sys.modules
             if m.split(".")[0] in ("jax", "jaxlib", "libwave_tpu")
             and sys.modules[m] is not None], "a JAX module was loaded"
+for new in ("ops.hamming", "vision.matcher", "vision.tracker",
+            "containers.landmark", "pipelines.visual_frontend",
+            "bench_frontend", "sim.render", "utils.config"):
+    assert "libwave_tpu_torch." + new in names, new
 print("imported", len(names), "modules")
 """
 
@@ -49,7 +53,7 @@ def test_port_and_chip_smoke_import_without_jax():
     proc = _run(["-c", IMPORT_ALL])
     assert proc.returncode == 0, proc.stderr
     count = int(proc.stdout.split()[1])
-    assert count >= 10  # geometry, optim, ops, utils and their modules
+    assert count >= 25  # the back end's and the front end's modules
 
 
 def test_chip_smoke_fails_without_cuda():
