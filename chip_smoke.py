@@ -8,41 +8,80 @@ it imports no JAX. Phases, each reported on its own line:
 
 1. device: the card's name and power limit (from ``nvidia-smi``), the
    torch and CUDA versions; no CUDA device is a failure, never a CPU run;
-2. build: compiles ``libwave_tpu_torch/csrc/segmm_g_a.cu`` and
+2. build: compiles ``libwave_tpu_torch/csrc/segmm_g_a.cu``,
+   ``libwave_tpu_torch/csrc/segmm_seg.cu`` and
    ``libwave_tpu_torch/csrc/hamming.cu`` for sm_90a, one nvcc each, started
    together, and loads them;
 3. kernel: the G/A kernel against its plain PyTorch version on the card, at
    each band call of the headline problem's first linearization and on edge
    cases (duplicate ids, ids -1 and >= M, Pmax = 37, M = 1000), within
    1e-6 * max|plain| (both sum the same f32 terms, only the order may
-   differ); then both timed with CUDA events at the headline shapes;
+   differ); then both timed at the headline shapes. Every kernel time here
+   is device time: CUDA events around the replay of a CUDA graph of many
+   calls (``bench_problem.device_ms``), apart from the plain segment
+   reduce, which reads its longest run on the host and is timed on a
+   synchronized host clock (``bench_problem.wall_ms``);
 4. headline: ``solve_ba`` on the full headline problem (200 poses, 10,000
    landmarks, 300 observations per pose, f32, bands) with the benchmark's
-   configuration. It must take the explicit-S path with exactly 13 kernel
-   launches per LM iteration, run with TF32 off and without a synchronizing
+   configuration. It must take the explicit-S path with exactly 13 G/A
+   launches, 3 segment reduces and 1 segment broadcast per LM iteration,
+   run with TF32 off and without a synchronizing
    CUDA call that PyTorch's sync debug mode detects, give finite costs that
    end below the initial cost, and follow the trajectory of the same solve
    with the plain G/A forced on the card (rtol 1e-3). Then LM iterations/s for
    both, and a small f64 problem solved on the card against the CPU;
-5. hamming: both Hamming kernels against their plain versions on the card,
+5. seg: the segment reduce and broadcast kernels against their plain
+   versions at the headline's shapes (C = 3 and 6, K = 60,000, M = 10,000),
+   the matrix-free profile's K = 480,000 and ``ba_large``'s K = 600,000,
+   M = 100,000, and on edge cases (ids < 0 and >= M, empty segments, C = 1,
+   unaligned K): the broadcast bit for bit, the reduce within
+   1e-6 * sum|vals| per output and bit-identical across two runs; then the
+   kernel, the plain version and the one PyTorch call that computes the
+   same function (``index_add_`` into zeros; ``index_select`` on y padded
+   with a zero column), each timed as device time;
+6. matrix_free: the 10-iteration headline solve with
+   ``explicit_s="never"`` (matrix-free PCG): exactly 23 reduces and 22
+   broadcasts per LM iteration (3 + 20 CG steps, 2 + 20) and no G/A launch,
+   no synchronizing call, the first iteration within rtol 1e-3 of the same
+   solve through the plain crossings, the final cost finite and below the
+   initial; LM iterations/s through the kernels and through the plain
+   crossings in alternating turns; and ``bench_problem.matvec_profile``
+   (matvec ms at 300 to 2,400 observations per pose, the fit, the split by
+   op);
+7. vio: ``bench.py``'s ``bench_vio`` configuration (BASELINE config 4:
+   120 landmarks, 600 steps, 10 Hz keyframes, 15 LM iterations, 60 CG steps,
+   f32) built by the port from seeds, solved with ``solver="auto"`` (the
+   dense path, one G/A launch per iteration) and ``solver="pcg"``: launch
+   counts as worked out from the code, the synchronizing calls listed (only
+   ``torch.linalg`` calls allowed), final cost and ATE below the initial
+   perturbation's, keyframes/s, and the same solve on this machine's CPU
+   through the plain versions (final cost within rtol 1e-2, keyframe
+   positions within 1 cm: at f32 the stiff IMU information drowns the
+   vision terms' last digits, and the port's own f32 and f64 solves on the
+   CPU end about 1 mm apart in ATE);
+8. hamming: both Hamming kernels against their plain versions on the card,
    exactly equal (integer outputs), at the frame's 512 x 512 x 16, at an
    unaligned 300 x 700 x 8 with ties, mask zeros, an all-masked bank and a
    single live column, the top-2 at 16,384^2 x 16 and the table at
-   4,096^2 x 16; each timed against its plain version with CUDA events;
-6. pair: ``bench.py``'s two-frame pair (480x640 blobs and their (4, 7) roll,
+   4,096^2 x 16; each timed against its plain version as device time;
+9. pair: ``bench.py``'s two-frame pair (480x640 blobs and their (4, 7) roll,
    FAST-512, BRISK, knn ratio + RANSAC) on the card: one top-2 launch per
    pair, pairs/s with the kernel and with the plain top-2; then the same pair
    through the distance heuristic with cross check, one table launch per
    pair, the same matches as with the plain table;
-7. sequence: the 25 EuRoC-resolution (752x480) frames of ``bench.py``'s
-   front-end benchmark through ``track_sequence`` with ``FrontendParams()``:
-   25 top-2 launches, tracks identical to the run with the plain top-2,
-   contiguous tracks of mean length >= 3, rows and ids within 10% of the JAX
-   package's figures on the same frames, frames/s for both runs, ms per
-   frame by layer, and the synchronizing calls of one frame step (none
-   allowed outside RANSAC's ``torch.linalg`` calls).
+10. sequence: the 25 EuRoC-resolution (752x480) frames of ``bench.py``'s
+    front-end benchmark through ``track_sequence`` with ``FrontendParams()``:
+    25 top-2 launches, tracks identical to the run with the plain top-2,
+    contiguous tracks of mean length >= 3, rows and ids within 10% of the JAX
+    package's figures on the same frames, frames/s for both runs, ms per
+    frame by layer, and the synchronizing calls of one frame step (none
+    allowed outside RANSAC's ``torch.linalg`` calls).
 
-The line before the last is a JSON object describing each kernel; the last
+The line before the last is a JSON object describing each kernel (its
+launches on its main path, its largest difference from the plain version,
+its time, the plain version's and the library call's, and its bound: the
+larger of the bytes it must move over 3.35 TB/s and its operations over
+67 TFLOP/s, the H100 SXM's HBM rate and non-tensor f32 rate); the last
 line is ``{"ok": true, "device": {...}}``. Any failed phase raises and the
 script exits non-zero without that line.
 """
@@ -51,6 +90,7 @@ from __future__ import annotations
 
 import collections
 import concurrent.futures
+import contextlib
 import dataclasses
 import inspect
 import json
@@ -67,8 +107,10 @@ import torch
 import libwave_tpu_torch
 from libwave_tpu_torch import bench_frontend, bench_problem
 from libwave_tpu_torch.ops import hamming, segmm
+from libwave_tpu_torch.benchmark import Trajectory, absolute_trajectory_error
+from libwave_tpu_torch.geometry.se3 import SE3
 from libwave_tpu_torch.optim import ba, schur
-from libwave_tpu_torch.pipelines import visual_frontend
+from libwave_tpu_torch.pipelines import vio, visual_frontend
 from libwave_tpu_torch.utils import precision
 from libwave_tpu_torch.vision import matcher
 from libwave_tpu_torch.vision.descriptor import brisk_describe
@@ -81,6 +123,13 @@ KERNEL_REPLACES = "libwave_tpu/ops/segmm.py:190"
 HAMMING_SOURCE = "libwave_tpu_torch/csrc/hamming.cu"
 TOP2_REPLACES = "libwave_tpu/ops/hamming.py:103"
 TABLE_REPLACES = "libwave_tpu/ops/hamming.py:27"
+SEG_SOURCE = "libwave_tpu_torch/csrc/segmm_seg.cu"
+REDUCE_REPLACES = "libwave_tpu/ops/segmm.py:65"
+BROADCAST_REPLACES = "libwave_tpu/ops/segmm.py:117"
+# the H100 SXM's published HBM rate and non-tensor f32 rate (NVIDIA's data
+# sheet), the denominators of every kernel's bound
+HBM_BYTES_PER_S = 3.35e12
+ALU_OPS_PER_S = 67e12
 LM_ITERS = 10
 BAND_CALLS = 13  # band plan entries x pose runs of the headline problem
 REL_TOL = 1e-6
@@ -122,6 +171,34 @@ def phase_device():
     return name, smi
 
 
+COUNTED = {
+    "segmm_g_a": segmm.dense_g_a,
+    "seg_reduce": segmm.seg_reduce_sorted,
+    "seg_broadcast": segmm.seg_broadcast,
+    "hamming_top2": hamming.hamming_top2,
+    "hamming_table": hamming.hamming_distance,
+}
+
+
+def reset_launches():
+    """Set every kernel's launch count to 0."""
+    for fn in COUNTED.values():
+        fn.launches = 0
+
+
+def launch_counts():
+    """Every kernel's launch count since the last reset."""
+    return {name: fn.launches for name, fn in COUNTED.items()}
+
+
+def bound(nbytes, ops=0.0):
+    """(bound_ms, bound_by): the larger of moving ``nbytes`` over the HBM
+    rate and doing ``ops`` over the non-tensor ALU rate."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / ALU_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
 def _timed_build(build):
     t0 = time.perf_counter()
     log = build()
@@ -130,7 +207,8 @@ def _timed_build(build):
 
 def phase_build():
     """One nvcc per source, all started together."""
-    builds = ((KERNEL_SOURCE, segmm.build), (HAMMING_SOURCE, hamming.build))
+    builds = ((KERNEL_SOURCE, segmm.build), (SEG_SOURCE, segmm.build_seg),
+              (HAMMING_SOURCE, hamming.build))
     with concurrent.futures.ThreadPoolExecutor(len(builds)) as pool:
         futures = [pool.submit(_timed_build, b) for _, b in builds]
         results = [f.result() for f in futures]
@@ -175,20 +253,13 @@ def _edge_cases(dev):
 
 
 def _time_calls(fn, operands, reps=20):
-    """ms per pass over ``operands``, CUDA events around ``reps`` passes."""
-    for _ in range(3):
+    """Device ms per pass over ``operands`` (``bench_problem.device_ms``:
+    CUDA events around a CUDA graph's replay)."""
+    def one_pass():
         for ops in operands:
             fn(*ops)
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(reps):
-        for ops in operands:
-            fn(*ops)
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / reps
+
+    return bench_problem.device_ms(one_pass, reps)
 
 
 def phase_kernel(problem, state, cfg):
@@ -227,10 +298,19 @@ def phase_kernel(problem, state, cfg):
     ms = _time_calls(segmm.dense_g_a, operands)
     plain_ms = _time_calls(segmm.dense_g_a_reference, operands)
     out_mb = 2 * 4 * 18 * cells / 1e6
+    # bytes: W, ids and hinv read once, G and A written once; operations:
+    # the G sums (one add per W value) and A's 3 multiply-adds per value
+    nbytes = sum(W.numel() * 4 + ids.numel() * 4 + h.numel() * 4
+                 for W, ids, h in operands) + 2 * 4 * 18 * cells
+    ops = sum(W.numel() for W, _, _ in operands) + 18 * 6 * cells
+    bound_ms, bound_by = bound(nbytes, ops)
     print(f"kernel: one LM iteration's {len(calls)} G/A calls take {ms:.4f} "
           f"ms (kernel) vs {plain_ms:.4f} ms (plain); {out_mb:.1f} MB of G "
-          f"and A written, {out_mb / ms / 1e3:.3f} TB/s (kernel)")
-    return worst, ms, plain_ms
+          f"and A written, {out_mb / ms / 1e3:.3f} TB/s (kernel); bound "
+          f"{bound_ms:.4f} ms ({bound_by}: {nbytes / 1e6:.1f} MB, "
+          f"{ops:.3e} ops); no single PyTorch call computes G and A")
+    return {"max_abs_err": worst["abs"], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
 
 
 def _g_a(plain):
@@ -271,13 +351,13 @@ def phase_headline(problem, state, cfg, smi):
         with mock.patch.object(schur, "pcg", pcg_spy), _g_a(plain=False), \
                 warnings.catch_warnings(record=True) as caught:
             warnings.simplefilter("always")
-            segmm.dense_g_a.launches = 0
+            reset_launches()
             torch.cuda.set_sync_debug_mode("warn")
             try:
                 _, info = ba.solve_ba(problem, state, cfg)
             finally:
                 torch.cuda.set_sync_debug_mode("default")
-            launches = segmm.dense_g_a.launches
+            counts = launch_counts()
         torch.cuda.synchronize()
     finally:
         torch.backends.cuda.matmul.allow_tf32 = saved
@@ -288,9 +368,14 @@ def phase_headline(problem, state, cfg, smi):
             f"{len(syncs)} synchronizing CUDA calls inside solve_ba, first "
             f"at {syncs[0].filename}:{syncs[0].lineno}"
         )
-    check(launches == BAND_CALLS * LM_ITERS,
-          f"{launches} G/A kernel launches in {LM_ITERS} LM iterations, "
-          f"expected {BAND_CALLS * LM_ITERS}")
+    # per LM iteration: 13 G/A calls; the Hll and bl reduces of the normal
+    # equations and back-substitution's reduce; schur_rhs's broadcast (the
+    # explicit-S preconditioner is read off S: no broadcast)
+    want = dict(segmm_g_a=BAND_CALLS * LM_ITERS, seg_reduce=3 * LM_ITERS,
+                seg_broadcast=LM_ITERS, hamming_top2=0, hamming_table=0)
+    check(counts == want, f"headline: launches {counts} in {LM_ITERS} LM "
+          f"iterations, expected {want}")
+    launches_ga = counts["segmm_g_a"]
     check(len(tf32_seen) == LM_ITERS and not any(tf32_seen),
           f"TF32 was on inside solve_ba ({tf32_seen})")
     c0 = float(info["initial_cost"])
@@ -298,9 +383,11 @@ def phase_headline(problem, state, cfg, smi):
     check(np.isfinite(c0) and np.isfinite(costs).all(),
           f"non-finite costs: {c0}, {costs}")
     check(costs[-1] < c0, f"final cost {costs[-1]} not below initial {c0}")
-    print(f"headline: explicit-S path, {launches} G/A kernel launches in "
-          f"{LM_ITERS} LM iterations, TF32 off, no synchronizing call "
-          f"detected inside solve_ba; cost {c0:.6e} -> "
+    print(f"headline: explicit-S path, {launches_ga} G/A, "
+          f"{counts['seg_reduce']} reduce and {counts['seg_broadcast']} "
+          f"broadcast kernel launches in {LM_ITERS} LM iterations, TF32 "
+          f"off, no synchronizing call detected inside solve_ba; cost "
+          f"{c0:.6e} -> "
           f"{costs[-1]:.6e}, accepted "
           f"{int(info['accepted'].sum())}/{LM_ITERS}")
     _, info_p = _solve(problem, state, cfg, plain=True)
@@ -327,7 +414,7 @@ def phase_headline(problem, state, cfg, smi):
           f"the plain G/A (runs {rates['plain'][0]:.4f}, "
           f"{rates['plain'][1]:.4f}), final cost {final['plain']:.6e} | "
           f"{smi}")
-    return launches
+    return launches_ga
 
 
 def phase_small_reference(dev):
@@ -353,6 +440,298 @@ def phase_small_reference(dev):
     print(f"reference: small f64 problem (20 poses, 500 landmarks) solves "
           f"alike on the card and the CPU (rtol 1e-6): "
           f"{' '.join(f'{c:.9e}' for c in out['cuda'])}")
+
+
+def _seg_compare(case, got, ref, scale, stats, exact):
+    """Largest |kernel - plain|; the reduce within 1e-6 * scale (sum|vals|
+    of each output), the broadcast bit for bit."""
+    err = (got.double() - ref.double()).abs()
+    stats["max_abs_err"] = max(stats["max_abs_err"], float(err.max()))
+    if exact:
+        check(torch.equal(got, ref), f"seg {case}: broadcast kernel and plain "
+              f"version differ (max abs err {float(err.max()):.3e})")
+    else:
+        over = err > REL_TOL * scale.double()
+        check(not bool(over.any()), f"seg {case}: reduce kernel off its plain "
+              f"version by more than 1e-6 * sum|vals| at {int(over.sum())} "
+              f"outputs (max abs err {float(err.max()):.3e})")
+
+
+def _seg_cases(problem, dev):
+    """(name, C, dtype, sigma, offsets, idx, M) cases: the headline layout,
+    the matrix-free profile's 2,400 observations per pose, ba_large's
+    shape with random ids, and small edge cases."""
+    ell = problem.ell
+    M = problem.bands.entries[-1][1]
+    big, _ = bench_problem.make_problem(obs_per_pose=2400, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    large = torch.randint(0, 100_000, (600_000,), generator=gen, device=dev,
+                          dtype=torch.int32)
+    edge = torch.randint(-3, 780, (12_345,), generator=gen, device=dev,
+                         dtype=torch.int32)
+    edge[100:400] = 500  # a long run; ids 777..779 and < 0 are outside
+    return [
+        ("headline C=3", 3, torch.float32, ell.sigma, ell.offsets,
+         problem.lm_idx, M),
+        ("headline C=6", 6, torch.float32, ell.sigma, ell.offsets,
+         problem.lm_idx, M),
+        ("headline C=3 f64", 3, torch.float64, ell.sigma, ell.offsets,
+         problem.lm_idx, M),
+        ("profile K=480,000", 3, torch.float32, big.ell.sigma,
+         big.ell.offsets, big.lm_idx, M),
+        ("ba_large K=600,000 M=100,000", 3, torch.float32,
+         *segmm.sorted_layout(large, 100_000), large, 100_000),
+        ("edge C=1 K=12,345 M=777, ids < 0 and >= M, empty segments", 1,
+         torch.float32, *segmm.sorted_layout(edge, 777), edge, 777),
+    ]
+
+
+def phase_seg(problem, dev, smi):
+    stats = {k: {"max_abs_err": 0.0} for k in ("seg_reduce", "seg_broadcast")}
+    gen = torch.Generator(device=dev).manual_seed(6)
+    timed = {}
+    for name, C, dtype, sigma, offsets, idx, M in _seg_cases(problem, dev):
+        K = idx.shape[0]
+        vals = torch.randn((C, K), generator=gen, device=dev, dtype=dtype)
+        out = segmm.seg_reduce_sorted(vals, sigma, offsets)
+        again = segmm.seg_reduce_sorted(vals, sigma, offsets)
+        ref = segmm.seg_reduce_sorted_reference(vals, sigma, offsets)
+        scale = segmm.seg_reduce_sorted_reference(vals.abs(), sigma, offsets)
+        torch.cuda.synchronize()
+        check(torch.equal(out, again),
+              f"seg {name}: two reduce runs are not bit-identical")
+        _seg_compare(name, out, ref, scale, stats["seg_reduce"], exact=False)
+        generic = segmm.seg_reduce(vals, idx, M)
+        check(torch.equal(generic, segmm.seg_reduce_reference(vals, idx, M)),
+              f"seg {name}: seg_reduce (device sort) differs from its plain "
+              f"version")
+        y = torch.randn((C, M), generator=gen, device=dev, dtype=dtype)
+        # the broadcast also sees ids < 0 and >= M
+        bidx = idx.clone()
+        bidx[:7] = torch.tensor([-1, -5, M, M + 3, 0, M - 1, 2**30],
+                                dtype=torch.int32, device=dev)
+        _seg_compare(name, segmm.seg_broadcast(y, bidx),
+                     segmm.seg_broadcast_reference(y, bidx), None,
+                     stats["seg_broadcast"], exact=True)
+        timed[name] = (vals, sigma, offsets, idx, y, M)
+    print(f"seg: reduce within 1e-6 * sum|vals| of its plain version (max abs "
+          f"err {stats['seg_reduce']['max_abs_err']:.3e}) and bit-identical "
+          f"across two runs, broadcast equal bit for bit, at "
+          f"{', '.join(timed)}")
+
+    for name, (vals, sigma, offsets, idx, y, M) in timed.items():
+        if name.startswith("edge") or "f64" in name:
+            continue
+        C, K = vals.shape
+        used = int(offsets[-1])  # slots that belong to a segment
+        idx_l = idx.long()
+        zeros = torch.zeros((C, M), dtype=vals.dtype, device=dev)
+        ypad = torch.cat([y, torch.zeros_like(y[:, :1])], dim=1)
+        clamped = torch.where((idx >= 0) & (idx < M), idx_l, M)
+        t = {
+            "seg_reduce": (
+                bench_problem.device_ms(
+                    lambda: segmm.seg_reduce_sorted(vals, sigma, offsets)),
+                # it synchronizes: host clock
+                bench_problem.wall_ms(
+                    lambda: segmm.seg_reduce_sorted_reference(
+                        vals, sigma, offsets), reps=5),
+                bench_problem.device_ms(
+                    lambda: zeros.clone().index_add_(1, idx_l, vals)),
+                # the vals and sigma of the slots in a segment and the
+                # offsets read once, the sums written once
+                bound((C * used + C * M) * vals.element_size()
+                      + (used + M + 1) * 4, C * used),
+            ),
+            "seg_broadcast": (
+                bench_problem.device_ms(lambda: segmm.seg_broadcast(y, idx)),
+                bench_problem.device_ms(
+                    lambda: segmm.seg_broadcast_reference(y, idx), reps=20),
+                bench_problem.device_ms(
+                    lambda: ypad.index_select(1, clamped)),
+                # y and the ids read once, the gathered values written once
+                bound((C * M + C * K) * y.element_size() + K * 4),
+            ),
+        }
+        for kern, (ms, plain_ms, lib_ms, (bound_ms, bound_by)) in t.items():
+            print(f"seg: {kern} {name}: {ms:.4f} ms (kernel) vs "
+                  f"{plain_ms:.4f} ms (plain) vs {lib_ms:.4f} ms (library "
+                  f"call); bound {bound_ms:.4f} ms ({bound_by}), device time "
+                  f"| {smi}")
+            if name == "headline C=3":
+                stats[kern].update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                                   bound_ms=bound_ms, bound_by=bound_by)
+    return stats
+
+
+def _plain_crossings(plain):
+    """Route the Schur crossings to the segment kernels or to their plain
+    versions."""
+    if not plain:
+        return contextlib.nullcontext()
+    return mock.patch.multiple(
+        segmm, seg_reduce_sorted=segmm.seg_reduce_sorted_reference,
+        seg_broadcast=segmm.seg_broadcast_reference)
+
+
+def _sync_free(fn):
+    """Run ``fn`` under PyTorch's sync debug mode; return its result and the
+    synchronizing calls seen, as {file:line: count}."""
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return out, collections.Counter(
+        f"{w.filename}:{w.lineno}" for w in caught
+        if "called a synchronizing CUDA operation" in str(w.message)
+    )
+
+
+def phase_matrix_free(problem, state, smi):
+    cfg = dataclasses.replace(bench_problem.bench_config(LM_ITERS),
+                              explicit_s="never")
+    cg = cfg.cg_max_iters
+    reset_launches()
+    (_, info), syncs = _sync_free(
+        lambda: ba.solve_ba(problem, state, cfg))
+    counts = launch_counts()
+    check(not syncs, f"matrix_free: synchronizing calls inside solve_ba: "
+          f"{dict(syncs)}")
+    # per LM iteration: reduces of Hll, bl and back-substitution plus one
+    # per CG matvec; broadcasts of schur_rhs and the preconditioner's self
+    # blocks plus one per CG matvec
+    want = dict(segmm_g_a=0, seg_reduce=(3 + cg) * LM_ITERS,
+                seg_broadcast=(2 + cg) * LM_ITERS, hamming_top2=0,
+                hamming_table=0)
+    check(counts == want, f"matrix_free: launches {counts}, expected {want}")
+    c0 = float(info["initial_cost"])
+    costs = info["costs"].cpu().numpy().astype(np.float64)
+    check(np.isfinite(c0) and np.isfinite(costs).all() and costs[-1] < c0,
+          f"matrix_free: costs {c0} -> {costs}")
+    with _plain_crossings(True):
+        _, info_p = ba.solve_ba(problem, state, cfg)
+    costs_p = info_p["costs"].cpu().numpy().astype(np.float64)
+    check(np.allclose(costs[0], costs_p[0], rtol=1e-3, atol=0.0),
+          f"matrix_free: first iteration {costs[0]} vs {costs_p[0]} through "
+          f"the plain crossings")
+    rel = np.abs(costs - costs_p) / np.abs(costs_p)
+    print(f"matrix_free: explicit_s='never', {counts['seg_reduce']} reduce "
+          f"and {counts['seg_broadcast']} broadcast launches in {LM_ITERS} "
+          f"LM iterations ({3 + cg} and {2 + cg} per iteration at {cg} CG "
+          f"steps, as worked out from the code), no G/A launch, no "
+          f"synchronizing call; cost {c0:.6e} -> {costs[-1]:.6e}; the plain "
+          f"crossings' trajectory differs by at most {rel.max():.3e} "
+          f"(first iteration {rel[0]:.3e}, rtol 1e-3): "
+          f"{' '.join(f'{c:.6e}' for c in costs)}")
+    rates = {"kernel": [], "plain": []}
+    final = {}
+    for which in ("kernel", "plain", "plain", "kernel"):
+        with _plain_crossings(which == "plain"):
+            rate, cost = bench_problem.bench_backend(problem, state, cfg=cfg)
+        rates[which].append(rate)
+        final[which] = cost
+    for which in ("kernel", "plain"):
+        r = rates[which]
+        print(f"matrix_free: {np.median(r):.4f} LM iterations/s through the "
+              f"{which} crossings (runs {r[0]:.4f}, {r[1]:.4f}), final cost "
+              f"{final[which]:.6e} | {smi}")
+    prof = bench_problem.matvec_profile(state.p.device)
+    ops = prof.pop("ba_matvec_op_ms")
+    print(f"matrix_free: matvec_profile (device time, 50 matvecs each; wall: host clock): "
+          + ", ".join(f"{k} {v:.4f}" for k, v in prof.items())
+          + " | per op at 300 obs/pose (ms): "
+          + ", ".join(f"{k} {v:.4f}" for k, v in ops.items()) + f" | {smi}")
+    return counts
+
+
+def _move(x, dev):
+    """A problem or state (NamedTuples of tensors) on ``dev``."""
+    if isinstance(x, torch.Tensor):
+        return x.to(dev)
+    if isinstance(x, tuple) and hasattr(x, "_fields"):
+        return type(x)(*(_move(v, dev) for v in x))
+    return x
+
+
+def _ate(gt, est):
+    t = torch.arange(gt.q.shape[0], dtype=torch.float64)
+    truth = Trajectory(t, SE3(gt.q.double().cpu(), gt.p.double().cpu()))
+    traj = Trajectory(t, SE3(est.q.double().cpu(), est.p.double().cpu()))
+    return float(absolute_trajectory_error(truth, traj)[0])
+
+
+def phase_vio(dev, smi):
+    problem, gt, init = bench_problem.make_vio_problem(device=dev)
+    N, M = gt.q.shape[0], gt.lm.shape[0]
+    K = problem.lm_idx.shape[0]
+    it = bench_problem.vio_config().max_iterations
+    cg = bench_problem.vio_config().cg_max_iters
+    ate0 = _ate(gt, init)
+    print(f"vio: bench_vio's problem built by the port from seeds 2, 3, 4 "
+          f"(its own draws, not the JAX package's): {N} keyframes, {M} "
+          f"landmarks, {K} observation slots, f32; ATE of the start "
+          f"{ate0:.6f} m")
+    src = Path(inspect.getsourcefile(schur))
+    linalg_sites = {f"{src}:{i}" for i, line in
+                    enumerate(src.read_text().splitlines(), 1)
+                    if "torch.linalg." in line}
+    # per LM iteration, dense: reduces of Hll, bl and back-substitution,
+    # schur_rhs's broadcast, one G/A build; PCG: as the matrix-free BA
+    # path, with cg_max_iters matvecs
+    wants = {
+        "auto": dict(segmm_g_a=it, seg_reduce=3 * it, seg_broadcast=it,
+                     hamming_top2=0, hamming_table=0),
+        "pcg": dict(segmm_g_a=0, seg_reduce=(3 + cg) * it,
+                    seg_broadcast=(2 + cg) * it, hamming_top2=0,
+                    hamming_table=0),
+    }
+    cpu = torch.device("cpu")
+    problem_cpu, init_cpu = _move(problem, cpu), _move(init, cpu)
+    out = {}
+    for solver, want in wants.items():
+        cfg = bench_problem.vio_config(solver)
+        reset_launches()
+        (est, info), syncs = _sync_free(
+            lambda: vio.solve_vio(problem, init, cfg))
+        counts = launch_counts()
+        check(counts == want, f"vio {solver}: launches {counts}, expected "
+              f"{want}")
+        stray = sorted(set(syncs) - linalg_sites)
+        check(not stray, f"vio {solver}: synchronizing calls outside "
+              f"torch.linalg: {stray}")
+        c0 = float(info["initial_cost"])
+        cost = float(info["final_cost"])
+        ate = _ate(gt, est)
+        check(np.isfinite(cost) and cost < c0 and ate < ate0,
+              f"vio {solver}: cost {c0} -> {cost}, ATE {ate0} -> {ate}")
+        est_cpu, info_cpu = vio.solve_vio(problem_cpu, init_cpu, cfg)
+        cost_cpu = float(info_cpu["final_cost"])
+        dp = float((est.p.cpu() - est_cpu.p).abs().max())
+        check(abs(cost - cost_cpu) <= 1e-2 * abs(cost_cpu) and dp <= 1e-2,
+              f"vio {solver}: card final cost {cost} vs CPU {cost_cpu}, "
+              f"keyframe positions differ by {dp} m")
+        rates = []
+        for _ in range(2):
+            rate, _ = bench_problem.bench_vio(problem, init, solver)
+            rates.append(rate)
+        listed = ", ".join(f"{Path(k).name}:{k.rsplit(':', 1)[1]} x{v}"
+                           for k, v in sorted(syncs.items())) or "none"
+        print(f"vio {solver}: {counts['segmm_g_a']} G/A, "
+              f"{counts['seg_reduce']} reduce and {counts['seg_broadcast']} "
+              f"broadcast launches in {it} LM iterations (as worked out from "
+              f"the code); synchronizing calls: {listed}; cost {c0:.6e} -> "
+              f"{cost:.6e} (CPU, plain versions: {cost_cpu:.6e}, ATE "
+              f"{_ate(gt, est_cpu):.6f} m; keyframe positions within "
+              f"{dp:.3e} m); ATE {ate0:.6f} -> {ate:.6f} m; "
+              f"{np.median(rates):.3f} keyframes/s (runs "
+              f"{', '.join(f'{r:.3f}' for r in rates)}) | {smi}")
+        out[solver] = counts
+    return out
 
 
 def _frame_bank(frame, dev, params=FASTParams(threshold=20.0, num_features=512)):
@@ -442,8 +821,15 @@ def phase_hamming(frames, dev, smi):
         plain_ms = _time_calls(plain, [ops], plain_reps)
         if name.startswith("frame"):
             out[which]["ms"], out[which]["plain_ms"] = ms, plain_ms
+            # bytes: both banks (and the mask) read once, the outputs
+            # written once; operations: xor, popcount and add per word pair
+            n1, w = ops[0].shape
+            n2 = ops[1].shape[0]
+            out_bytes = 3 * n1 * 4 if which == "top2" else n1 * n2 * 4
+            out[which]["bound_ms"], out[which]["bound_by"] = bound(
+                (n1 + n2) * w * 4 + n2 + out_bytes, 3 * n1 * n2 * w)
         print(f"hamming: {which} {name}: {ms:.4f} ms (kernel) vs "
-              f"{plain_ms:.4f} ms (plain), CUDA events | {smi}")
+              f"{plain_ms:.4f} ms (plain), device time | {smi}")
     return out
 
 
@@ -648,6 +1034,15 @@ def phase_sequence(frames, dev, smi):
     return launches
 
 
+def _kernel_entry(name, source, replaces, n_launches, stats):
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")
+    entry = {"name": name, "route": "cuda", "source": source,
+             "replaces": replaces, "launches": n_launches}
+    entry.update({k: stats[k] for k in keys})
+    return entry
+
+
 def main():
     name, smi = phase_device()
     phase_build()
@@ -658,10 +1053,13 @@ def main():
           f"observations per pose, {len(problem.bands.entries)} band "
           f"entries) built in {time.perf_counter() - t0:.3f} s")
     cfg = bench_problem.bench_config(LM_ITERS)
-    worst, ms, plain_ms = phase_kernel(problem, state, cfg)
-    launches = phase_headline(problem, state, cfg, smi)
+    g_a = phase_kernel(problem, state, cfg)
+    ga_launches = phase_headline(problem, state, cfg, smi)
     phase_small_reference(dev)
+    seg = phase_seg(problem, dev, smi)
+    mf_counts = phase_matrix_free(problem, state, smi)
     del problem, state
+    phase_vio(dev, smi)
     t0 = time.perf_counter()
     frames = bench_frontend.make_euroc_frames()
     check(frames.shape == (SEQUENCE_FRAMES, 480, 752),
@@ -669,42 +1067,25 @@ def main():
     print(f"frames: {SEQUENCE_FRAMES} EuRoC cam0 frames (752x480, 400 "
           f"landmarks, seed 0) rendered in {time.perf_counter() - t0:.3f} s")
     ham = phase_hamming(frames, dev, smi)
+    for k in ham.values():
+        k["library_ms"] = None  # no one PyTorch call computes a Hamming table
     table_launches = phase_pair(dev, smi)
     top2_launches = phase_sequence(frames, dev, smi)
-    print(json.dumps({"kernels": [{
-        "name": "segmm_g_a",
-        "route": "cuda",
-        "source": KERNEL_SOURCE,
-        "replaces": KERNEL_REPLACES,
-        "launches": launches,
-        "max_abs_err": worst["abs"],
-        "ms": ms,
-        "plain_ms": plain_ms,
-    }, {
-        "name": "hamming_top2",
-        "route": "cuda",
-        "source": HAMMING_SOURCE,
-        "replaces": TOP2_REPLACES,
-        "launches": top2_launches,
-        "max_abs_err": ham["top2"]["max_abs_err"],
-        "mismatches": ham["top2"]["mismatches"],
-        "ms": ham["top2"]["ms"],
-        "plain_ms": ham["top2"]["plain_ms"],
-    }, {
-        "name": "hamming_table",
-        "route": "cuda",
-        "source": HAMMING_SOURCE,
-        "replaces": TABLE_REPLACES,
-        "launches": table_launches,
-        "max_abs_err": ham["table"]["max_abs_err"],
-        "mismatches": ham["table"]["mismatches"],
-        "ms": ham["table"]["ms"],
-        "plain_ms": ham["table"]["plain_ms"],
-    }]}))
+    print(json.dumps({"kernels": [
+        _kernel_entry("segmm_g_a", KERNEL_SOURCE, KERNEL_REPLACES,
+                      ga_launches, g_a),
+        _kernel_entry("seg_reduce", SEG_SOURCE, REDUCE_REPLACES,
+                      mf_counts["seg_reduce"], seg["seg_reduce"]),
+        _kernel_entry("seg_broadcast", SEG_SOURCE, BROADCAST_REPLACES,
+                      mf_counts["seg_broadcast"], seg["seg_broadcast"]),
+        _kernel_entry("hamming_top2", HAMMING_SOURCE, TOP2_REPLACES,
+                      top2_launches, ham["top2"]),
+        _kernel_entry("hamming_table", HAMMING_SOURCE, TABLE_REPLACES,
+                      table_launches, ham["table"]),
+    ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count(),
     }}))
-
 
 if __name__ == "__main__":
     try:

@@ -4,12 +4,18 @@
 (200 poses on a circle, 10,000 landmarks in a ring with ids ordered by
 bearing, 300 genuinely visible observations per pose, f32, pose-ELL layout
 plus a covisibility :class:`~libwave_tpu_torch.optim.schur.BandPlan`). For
-the same arguments it gives bit-identical arrays. The problem is built on
-the host, outside any timed window, and moved to ``device``.
+the same arguments it gives bit-identical arrays; its landmark layout leaves
+zero-weight slots out of every landmark's run. The problem is built on
+the host, outside any timed window, and moved to ``device`` (the card unless
+the caller asks for the CPU).
 
 :func:`bench_backend` times full LM iterations with ``bench.py``'s
 ``bench_backend`` configuration (10 iterations, 20 CG steps, tolerance
-1e-5, convergence freeze off).
+1e-5, convergence freeze off). :func:`matvec_profile` is ``bench.py``'s
+``bench_matvec_profile`` on the card: the matrix-free Schur matvec at 300 to
+2,400 observations per pose, a linear fit t(K) = a + b*K, and the split by
+op. :func:`make_vio_problem` and :func:`bench_vio` are ``bench.py``'s
+``bench_vio`` configuration (BASELINE config 4) built from seeds.
 """
 
 from __future__ import annotations
@@ -19,8 +25,19 @@ import time
 import numpy as np
 import torch
 
+from libwave_tpu_torch.geometry import so3
 from libwave_tpu_torch.optim import schur
-from libwave_tpu_torch.optim.ba import BAConfig, BAProblem, BAState, solve_ba
+from libwave_tpu_torch.optim.ba import (
+    BAConfig,
+    BAProblem,
+    BAState,
+    _linearize_ba,
+    solve_ba,
+)
+from libwave_tpu_torch.pipelines import vio
+from libwave_tpu_torch.sim.vo_dataset import VoSimParams, generate_vo_dataset
+from libwave_tpu_torch.utils.precision import full_f32
+from libwave_tpu_torch.utils.device import resolve
 
 
 def _quat_multiply_np(a, b):
@@ -65,9 +82,11 @@ def _q_bc_np(dtype=np.float64):
 
 
 def make_problem(num_poses=200, num_landmarks=10_000, obs_per_pose=300,
-                 seed=0, device="cpu"):
+                 seed=0, device=None):
     """Synthetic BA problem with ~num_poses*obs_per_pose observations,
-    built on the host from ``seed`` and returned on ``device``."""
+    built on the host from ``seed`` and returned on ``device`` (default:
+    the card)."""
+    device = resolve(device)
     rng = np.random.default_rng(seed)
     # landmarks in a ring around a circular trajectory; ids ordered by
     # bearing, the id order a real mapper produces, which gives the
@@ -148,9 +167,14 @@ def make_problem(num_poses=200, num_landmarks=10_000, obs_per_pose=300,
 
     free = np.ones(num_poses, dtype=np.float32)
     free[:2] = 0
-    pose_ell, lm_ell, pad_mask, ell, uv_p, w_p = schur.pack_observations(
+    pose_ell, lm_ell, pad_mask, _, uv_p, w_p = schur.pack_observations(
         pose_idx, lm_idx, num_poses, num_landmarks, uv, weight, device=device
     )
+    # zero-weight slots (poses that see fewer than obs_per_pose landmarks
+    # pad with landmark 0) add exact zeros: leave them out of the landmark
+    # runs, or landmark 0's run holds all of them
+    ell = schur.build_ell_layout(lm_ell, num_landmarks, valid=w_p > 0,
+                                 device=device)
     bands = schur.compute_band_plan(
         lm_ell, pad_mask, num_poses, num_landmarks
     )
@@ -195,11 +219,13 @@ def _median(times):
     return times[m] if len(times) % 2 else 0.5 * (times[m - 1] + times[m])
 
 
-def bench_backend(problem, state, iters=10, repeats=3):
+def bench_backend(problem, state, iters=10, repeats=3, cfg=None):
     """Time full LM solves: one warm-up, then the median of ``repeats``
     solves, each stopped after the device finished and the final cost was
-    fetched to the host. Returns (LM iterations/s, final cost)."""
-    cfg = bench_config(iters)
+    fetched to the host. ``cfg`` defaults to :func:`bench_config` of
+    ``iters``. Returns (LM iterations/s, final cost)."""
+    cfg = bench_config(iters) if cfg is None else cfg
+    iters = cfg.max_iterations
 
     def run_once():
         if state.p.is_cuda:
@@ -218,3 +244,178 @@ def bench_backend(problem, state, iters=10, repeats=3):
         dt, cost = run_once()
         times.append(dt)
     return iters / _median(times), cost
+
+
+def device_ms(fn, reps: int = 20, warmup: int = 2) -> float:
+    """Device ms per call of ``fn``: ``reps`` calls captured into one CUDA
+    graph and replayed between two CUDA events. The replay launches every
+    kernel without the host, so this is the device's time (with the gaps
+    between its kernels) whatever the host's launch rate or the depth of the
+    launch queue. ``fn`` must not synchronize: such a function cannot be
+    captured; time it with :func:`wall_ms`."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm-up off the capture, as PyTorch asks
+        for _ in range(warmup):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()  # the first replay uploads the graph
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    end.synchronize()
+    graph.reset()
+    return start.elapsed_time(end) / reps
+
+
+def wall_ms(fn, reps: int = 50, warmup: int = 3) -> float:
+    """Host-clock ms per call of ``fn`` over ``reps`` back-to-back calls
+    that end in a synchronize: what a loop of such calls waits for."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
+MATVEC_OBS = (300, 600, 1200, 2400)
+
+
+def matvec_profile(device=None, obs=MATVEC_OBS, reps: int = 50):
+    """``bench.py``'s ``bench_matvec_profile`` on the card: ms of one
+    matrix-free ``schur_matvec`` on the 200-pose, 10,000-landmark problem
+    at each observation count per pose, the fit t(K) = a + b*K over the
+    observation-bank size K, and one matvec's ops at 300 observations per
+    pose: the landmark broadcast (3 x K), the landmark reduce (3 x K), the
+    two W sweeps, the pose slot sum and the Hpp block product. Device time
+    (:func:`device_ms`, a CUDA graph of ``reps`` calls) each, and the
+    headline matvec's host-clock time (:func:`wall_ms`); needs a CUDA
+    device."""
+    device = resolve(device)
+    if device.type != "cuda":
+        raise ValueError("matvec_profile times the card: it needs a CUDA "
+                         "device")
+    out, sizes, headline = {}, {}, None
+    for n_obs in obs:
+        problem, state = make_problem(obs_per_pose=n_obs, device=device)
+        with full_f32():
+            blocks = _linearize_ba(problem, state,
+                                   torch.tensor(1e-4, device=device))
+        x = torch.ones((problem.free_pose.shape[0], 6), device=device)
+        with full_f32():
+            ms = device_ms(lambda: schur.schur_matvec(blocks, x), reps)
+            if headline is None:
+                headline = (blocks, x)
+                out[f"ba_matvec_wall_ms_obs{n_obs}"] = wall_ms(
+                    lambda: schur.schur_matvec(blocks, x), reps)
+        sizes[int(problem.pose_idx.shape[0])] = ms
+        out[f"ba_matvec_ms_obs{n_obs}"] = ms
+    ks = np.array(sorted(sizes), dtype=np.float64)
+    ts = np.array([sizes[int(k)] for k in ks])
+    slope, fixed = np.polyfit(ks, ts, 1)
+    out["ba_matvec_fixed_latency_ms"] = float(fixed)
+    out["ba_matvec_ns_per_obs"] = float(slope * 1e6)
+    out["ba_matvec_latency_fraction_headline"] = float(fixed / ts[0])
+
+    blocks, x = headline
+    ell = blocks.ell
+    vals3 = torch.ones((3,) + tuple(blocks.W.shape[1:]), device=device)
+    flat3 = vals3.reshape(3, -1)
+    y3 = torch.ones((3, blocks.bl.shape[-1]), device=device)
+    xk = x.T[:, :, None]
+    ops = {
+        "lm_broadcast_3xK": lambda: schur._gather_lm(blocks, y3),
+        "lm_seg_reduce_3xK": lambda: schur.ell_seg_reduce(flat3, ell),
+        "w_sweeps_elementwise": lambda: (schur._w_t_apply(blocks.W, xk),
+                                         schur._w_apply(blocks.W, vals3)),
+        "pose_slot_sum": lambda: torch.sum(vals3, dim=-1),
+        "hpp_block_product": lambda: torch.einsum("nij,nj->ni",
+                                                  blocks.Hpp, x),
+    }
+    out["ba_matvec_op_ms"] = {k: device_ms(fn, reps) for k, fn in ops.items()}
+    return out
+
+
+VIO_PARAMS = VoSimParams(nb_landmarks=120, steps=600, fx=200.0, fy=200.0,
+                         hz=10.0)
+
+
+def make_vio_problem(seed: int = 2, device=None, dtype=torch.float32):
+    """``bench.py``'s ``bench_vio`` problem without JAX: the synthetic VO
+    dataset of :data:`VIO_PARAMS` (landmarks from ``seed``), its VIO problem
+    with pixel noise 0.7 px and IMU noise 1e-4 rad/s, 1e-3 m/s^2 (drawn on
+    ``device`` from ``seed + 1``), cast to ``dtype``, and the perturbed
+    start (0.01 rad, 0.03 m, 0.2 m on the landmarks, from ``seed + 2``).
+    The draws are the port's own: the JAX package's keys give other
+    numbers. Returns (problem, ground truth, start state)."""
+    device = resolve(device)
+    ds = generate_vo_dataset(VIO_PARAMS, seed=seed, device=device)
+    gen = torch.Generator(device=device).manual_seed(seed + 1)
+    problem, gt = vio.vio_from_sim(
+        ds, pixel_noise=0.7, imu_gyro_sigma=1e-4, imu_accel_sigma=1e-3,
+        generator=gen, device=device,
+    )
+
+    def cast(x):
+        if isinstance(x, torch.Tensor) and x.is_floating_point():
+            return x.to(dtype)
+        return x
+
+    problem = problem._replace(
+        pim=type(problem.pim)(*map(cast, problem.pim)),
+        **{f: cast(getattr(problem, f)) for f in problem._fields
+           if f not in ("pim", "ell")},
+    )
+    N, M = gt.q.shape[0], gt.lm.shape[0]
+    gen = torch.Generator(device=device).manual_seed(seed + 2)
+
+    def noise(*shape):
+        return torch.randn(shape, generator=gen, dtype=gt.p.dtype,
+                           device=device)
+
+    init = vio.VIOState(
+        q=so3.quat_boxplus(gt.q, 0.01 * noise(N, 3)).to(dtype),
+        p=(gt.p + 0.03 * noise(N, 3)).to(dtype),
+        v=gt.v.to(dtype),
+        bg=torch.zeros((N, 3), dtype=dtype, device=device),
+        ba=torch.zeros((N, 3), dtype=dtype, device=device),
+        lm=(gt.lm + 0.2 * noise(M, 3)).to(dtype),
+    )
+    return problem, gt, init
+
+
+def vio_config(solver: str = "auto") -> "vio.VIOConfig":
+    """``bench.py``'s ``bench_vio`` solver configuration: 15 LM
+    iterations, 60 CG steps."""
+    return vio.VIOConfig(max_iterations=15, cg_max_iters=60, solver=solver)
+
+
+def bench_vio(problem, init, solver="auto", repeats=3):
+    """Time whole VIO solves as :func:`bench_backend` does: one warm-up,
+    then the median of ``repeats`` solves. Returns (keyframes/s, final
+    cost)."""
+    cfg = vio_config(solver)
+
+    def run_once():
+        if init.p.is_cuda:
+            torch.cuda.synchronize(init.p.device)
+        t0 = time.perf_counter()
+        _, info = vio.solve_vio(problem, init, cfg)
+        cost = float(info["final_cost"])
+        return time.perf_counter() - t0, cost
+
+    run_once()
+    times, cost = [], 0.0
+    for _ in range(repeats):
+        dt, cost = run_once()
+        times.append(dt)
+    return init.q.shape[0] / _median(times), cost

@@ -21,6 +21,8 @@ from typing import NamedTuple
 
 import torch
 
+from libwave_tpu_torch.utils.device import resolve
+
 _INT32_MAX = 2**31 - 1
 
 
@@ -40,6 +42,9 @@ class LandmarkBuffer(NamedTuple):
 
 def landmark_buffer(capacity: int, value_dim: int = 2, dtype=torch.float32,
                     device=None) -> LandmarkBuffer:
+    """Empty buffer of ``capacity`` rows on ``device`` (default: the card)."""
+    device = resolve(device)
+
     def full(shape, v, dt):
         return torch.full(shape, v, dtype=dt, device=device)
 

@@ -16,6 +16,8 @@ from __future__ import annotations
 
 import torch
 
+from libwave_tpu_torch.utils.device import resolve
+
 # Small-angle cutoff: below this, use Taylor expansions. sqrt(eps) for f32.
 _SMALL = 1e-6
 
@@ -59,8 +61,9 @@ def vee(Phi: torch.Tensor) -> torch.Tensor:
 
 
 def quat_identity(shape=(), dtype=torch.float32, device=None) -> torch.Tensor:
-    """Identity quaternion(s) of shape ``shape + (4,)``."""
-    q = torch.zeros(tuple(shape) + (4,), dtype=dtype, device=device)
+    """Identity quaternion(s) of shape ``shape + (4,)`` on ``device``
+    (default: the card)."""
+    q = torch.zeros(tuple(shape) + (4,), dtype=dtype, device=resolve(device))
     q[..., 0] = 1.0
     return q
 

@@ -11,7 +11,11 @@ never import JAX.
 - :func:`desc_from_numpy`/:func:`desc_to_numpy`: descriptor banks, numpy
   uint32 words <-> the port's int32 words with the same bits;
 - :func:`params_from_jax`: a parameter dataclass, field by field, into the
-  port's dataclass of the same name.
+  port's dataclass of the same name;
+- :func:`vo_dataset_from_jax_numpy`, :func:`pim_from_jax_numpy`,
+  :func:`vio_problem_from_jax_numpy`, :func:`vio_state_from_jax_numpy`: the
+  VIO slice's ``VoDataset``, ``PreintegratedImu``, ``VIOProblem`` and
+  ``VIOState``.
 """
 
 from __future__ import annotations
@@ -24,7 +28,11 @@ import torch
 from libwave_tpu_torch.containers.landmark import LandmarkBuffer
 from libwave_tpu_torch.optim import pose_graph, schur
 from libwave_tpu_torch.optim.ba import BAProblem, BAState
+from libwave_tpu_torch.optim.imu import PreintegratedImu
+from libwave_tpu_torch.pipelines.vio import VIOProblem, VIOState
 from libwave_tpu_torch.pipelines.visual_frontend import FrontendParams
+from libwave_tpu_torch.sim.vo_dataset import VoDataset
+from libwave_tpu_torch.utils.device import resolve
 from libwave_tpu_torch.vision.descriptor import BRISKParams, ORBDescriptorParams
 from libwave_tpu_torch.vision.detector import FASTParams, ORBDetectorParams
 from libwave_tpu_torch.vision.matcher import MatcherParams
@@ -58,11 +66,7 @@ def from_jax_numpy(problem, state, device, dtype=None):
 
     ell = None
     if problem.ell is not None:
-        e = problem.ell
-        ell = schur.EllLayout(
-            sigma=t(e.sigma), shift_masks=t(e.shift_masks),
-            seg_last=t(e.seg_last), has_obs=t(e.has_obs),
-        )
+        ell = ell_from_jax_numpy(problem.ell, problem.lm_idx, device)
     between = None
     if problem.between is not None:
         b = problem.between
@@ -90,10 +94,20 @@ def from_jax_numpy(problem, state, device, dtype=None):
     return ported, BAState(q=t(state.q), p=t(state.p), lm=t(state.lm))
 
 
+def ell_from_jax_numpy(ell, lm_idx, device) -> schur.EllLayout:
+    """The port's :class:`~libwave_tpu_torch.optim.schur.EllLayout` for the
+    bank ``lm_idx`` that the JAX package's layout ``ell`` describes: the
+    same stable landmark order (every slot counts, as in the JAX package's
+    log-shift reduce) plus the CSR offsets the reduce kernel reads."""
+    return schur.build_ell_layout(np.asarray(lm_idx), len(ell.has_obs),
+                                  device=device)
+
+
 def desc_from_numpy(desc, device=None) -> torch.Tensor:
-    """(N, W) uint32 descriptor words -> int32 tensor with the same bits."""
+    """(N, W) uint32 descriptor words -> int32 tensor with the same bits,
+    on ``device`` (default: the card)."""
     a = np.ascontiguousarray(np.asarray(desc, dtype=np.uint32))
-    return torch.from_numpy(a.view(np.int32).copy()).to(device)
+    return torch.from_numpy(a.view(np.int32).copy()).to(resolve(device))
 
 
 def desc_to_numpy(desc: torch.Tensor) -> np.ndarray:
@@ -102,7 +116,9 @@ def desc_to_numpy(desc: torch.Tensor) -> np.ndarray:
 
 
 def landmark_buffer_from_jax_numpy(buf, device=None) -> LandmarkBuffer:
-    """The JAX package's ``LandmarkBuffer`` (numpy leaves) on ``device``."""
+    """The JAX package's ``LandmarkBuffer`` (numpy leaves) on ``device``
+    (default: the card)."""
+    device = resolve(device)
     return LandmarkBuffer(*(
         torch.from_numpy(np.array(getattr(buf, f))).to(device)
         for f in LandmarkBuffer._fields
@@ -112,6 +128,8 @@ def landmark_buffer_from_jax_numpy(buf, device=None) -> LandmarkBuffer:
 def tracker_state_from_jax_numpy(state, device=None) -> TrackerState:
     """The JAX package's ``TrackerState`` (numpy leaves) on ``device``; the
     uint32 descriptor bank crosses bit for bit as int32."""
+    device = resolve(device)
+
     def t(x):
         return torch.from_numpy(np.array(x)).to(device)
 
@@ -140,3 +158,50 @@ def params_from_jax(params):
             v = params_from_jax(v)
         kw[f.name] = v
     return cls(**kw)
+
+
+def vo_dataset_from_jax_numpy(ds, device=None) -> VoDataset:
+    """The JAX package's ``VoDataset`` (numpy leaves) on ``device``
+    (default: the card), dtypes kept."""
+    device = resolve(device)
+    return VoDataset(*(_tensor(getattr(ds, f), device, None)
+                       for f in VoDataset._fields))
+
+
+def pim_from_jax_numpy(pim, device=None, dtype=None) -> PreintegratedImu:
+    """A (stacked) ``PreintegratedImu`` on ``device`` (default: the card)."""
+    device = resolve(device)
+    return PreintegratedImu(*(_tensor(getattr(pim, f), device, dtype)
+                              for f in PreintegratedImu._fields))
+
+
+def vio_problem_from_jax_numpy(problem, device=None, dtype=None) -> VIOProblem:
+    """The JAX package's ``VIOProblem`` (numpy leaves) on ``device``
+    (default: the card). Floating fields keep their dtype unless ``dtype``
+    is given; the ELL layout is rebuilt with the CSR offsets
+    (:func:`ell_from_jax_numpy`)."""
+    device = resolve(device)
+    kw = {}
+    for f in VIOProblem._fields:
+        v = getattr(problem, f)
+        if f == "pim":
+            v = pim_from_jax_numpy(v, device, dtype)
+        elif f == "ell":
+            v = None if v is None else ell_from_jax_numpy(
+                v, problem.lm_idx, device)
+        elif f == "pixel_sigma":
+            v = float(v)
+        elif f == "gravity":
+            v = tuple(float(g) for g in v)
+        else:
+            v = _tensor(v, device, dtype)
+        kw[f] = v
+    return VIOProblem(**kw)
+
+
+def vio_state_from_jax_numpy(state, device=None, dtype=None) -> VIOState:
+    """The JAX package's ``VIOState`` (numpy leaves) on ``device``
+    (default: the card)."""
+    device = resolve(device)
+    return VIOState(*(_tensor(getattr(state, f), device, dtype)
+                      for f in VIOState._fields))

@@ -14,12 +14,16 @@ Layouts follow the reference: per-observation blocks are component-major
 (``W`` is ``(D*3, ...)``, landmark blocks are 6 symmetric components
 ``(6, M)``), and observations sit in pose-ELL order (``Pmax`` padded slots
 per pose, zero weight on padding) so pose-side reductions are dense sums
-over the slot axis and landmark-side reductions run over a precomputed
-landmark-sorted permutation with log-shift segmented adds.
+over the slot axis. The landmark-side crossings are the segment kernels of
+``ops.segmm`` on the card (their plain versions on the CPU): the reduce
+runs over a precomputed landmark-sorted slot list with CSR offsets
+(:class:`EllLayout`), the broadcast is a gather by landmark id. The
+reference's log-shift scan (``libwave_tpu.optim.schur.ell_seg_reduce``)
+computes the same sums in another order.
 
 Host-side layout functions (:func:`pack_observations`, :func:`build_ell_layout`,
 :func:`compute_band_plan`) are numpy and return tensors on the requested
-device. Loops have a fixed trip count and mask with ``torch.where``: no
+device (the card unless ``device="cpu"``). Loops have a fixed trip count and mask with ``torch.where``: no
 device-to-host synchronization happens inside :func:`pcg`. The sharded
 (``axis_name``) branches of the reference are not ported and raise
 ``NotImplementedError``.
@@ -33,7 +37,9 @@ from typing import NamedTuple
 import numpy as onp
 import torch
 
+from libwave_tpu_torch.ops import segmm
 from libwave_tpu_torch.ops.segmm import dense_g_a
+from libwave_tpu_torch.utils.device import resolve
 
 
 def no_sharding(axis_name, what):
@@ -73,17 +79,16 @@ def _einsum(eq, *ops):
 
 
 class EllLayout(NamedTuple):
-    """Index machinery for the pose-ELL observation order, built host-side
-    by :func:`pack_observations`."""
+    """Landmark-side reduce machinery for the pose-ELL observation order,
+    built host-side by :func:`build_ell_layout`: landmark ``m``'s slots are
+    ``sigma[offsets[m]:offsets[m+1]]``, in slot order."""
 
-    sigma: torch.Tensor  # (K,) permutation: ELL-flat order -> landmark-sorted
-    shift_masks: torch.Tensor  # (S, K) 1.0 where slot k-2^s is same landmark
-    seg_last: torch.Tensor  # (M,) landmark-sorted position of each lm's last obs
-    has_obs: torch.Tensor  # (M,) 1.0 for landmarks with >= 1 observation
+    sigma: torch.Tensor  # (K,) int32 slots sorted by landmark, stable
+    offsets: torch.Tensor  # (M+1,) int32 CSR bounds of each landmark in sigma
 
 
 def pack_observations(pose_idx, lm_idx, num_poses, num_landmarks, *arrays,
-                      min_pmax=1, device="cpu"):
+                      min_pmax=1, device=None):
     """Host-side: reorder + pad an observation bank into pose-ELL order.
 
     Pads each pose's observations to the common Pmax (rectangular bank,
@@ -92,8 +97,11 @@ def pack_observations(pose_idx, lm_idx, num_poses, num_landmarks, *arrays,
     ``arrays`` are per-observation arrays (K, ...) to reorder+pad with zeros.
 
     Returns ``(pose_idx, lm_idx, pad_mask, ell_layout, *packed_arrays)`` as
-    tensors on ``device``, dtypes as given (indices int32).
+    tensors on ``device`` (default: the card), dtypes as given (indices
+    int32). The layout's landmark segments hold the real slots only: padding
+    carries zero weight, so leaving it out changes no sum.
     """
+    device = resolve(device)
     pose_idx = _host(pose_idx)
     lm_idx = _host(lm_idx)
     counts = onp.bincount(pose_idx, minlength=num_poses)
@@ -128,7 +136,8 @@ def pack_observations(pose_idx, lm_idx, num_poses, num_landmarks, *arrays,
             ).astype(a.dtype)
         packed.append(torch.as_tensor(out, device=device))
 
-    ell = build_ell_layout(lm_ell, num_landmarks, device=device)
+    ell = build_ell_layout(lm_ell, num_landmarks, valid=slot >= 0,
+                           device=device)
     return (
         torch.as_tensor(pose_ell, device=device),
         torch.as_tensor(lm_ell, device=device),
@@ -138,35 +147,22 @@ def pack_observations(pose_idx, lm_idx, num_poses, num_landmarks, *arrays,
     )
 
 
-def build_ell_layout(lm_idx, num_landmarks, device="cpu") -> EllLayout:
-    """Host-side landmark-reduction machinery for a (rectangular,
-    pose-ordered) observation bank: the landmark-sorted permutation, the
-    per-shift same-segment masks, and segment-end positions."""
-    lm_idx = _host(lm_idx)
-    K = lm_idx.shape[0]
-    sigma = onp.argsort(lm_idx, kind="stable").astype(onp.int32)
-    ids = lm_idx[sigma]
-    counts = onp.bincount(lm_idx, minlength=num_landmarks)
-    max_run = max(int(counts.max()), 1)
-    S = max(int(onp.ceil(onp.log2(max_run))), 1) if max_run > 1 else 0
-
-    masks = onp.zeros((max(S, 1), K), dtype=onp.float32)
-    for s in range(S):
-        d = 1 << s
-        masks[s, d:] = (ids[d:] == ids[:-d]).astype(onp.float32)
-    if S == 0:
-        masks = masks[:0]
-
-    # last sorted position of each observed landmark, 0 for the others
-    has = onp.zeros(num_landmarks, dtype=onp.float32)
-    has[ids] = 1.0
-    ends = onp.searchsorted(ids, onp.arange(num_landmarks), side="right") - 1
-    last = onp.where(has > 0, ends, 0)
+def build_ell_layout(lm_idx, num_landmarks, valid=None,
+                     device=None) -> EllLayout:
+    """Host-side landmark-reduce machinery for an observation bank: the
+    slots sorted by landmark (stable) and the CSR bounds of every landmark
+    in that order. Slots where ``valid`` is False (ELL padding) are sorted
+    after every landmark and belong to no segment; by default every slot
+    counts. Tensors on ``device`` (default: the card)."""
+    lm_idx = _host(lm_idx).astype(onp.int64)
+    key = lm_idx if valid is None else onp.where(
+        _host(valid), lm_idx, num_landmarks)
+    sigma = onp.argsort(key, kind="stable").astype(onp.int32)
+    offsets = onp.searchsorted(key[sigma], onp.arange(num_landmarks + 1))
+    device = resolve(device)
     return EllLayout(
         sigma=torch.as_tensor(sigma, device=device),
-        shift_masks=torch.as_tensor(masks, device=device),
-        seg_last=torch.as_tensor(last.astype(onp.int32), device=device),
-        has_obs=torch.as_tensor(has, device=device),
+        offsets=torch.as_tensor(offsets.astype(onp.int32), device=device),
     )
 
 
@@ -216,17 +212,10 @@ def compute_band_plan(lm_ell, pad_mask, num_poses: int, num_landmarks: int,
 
 
 def ell_seg_reduce(vals, ell: EllLayout):
-    """Per-landmark sums of ``vals`` (C, K): gather into landmark-sorted
-    order, segmented Hillis-Steele up-sweep with the boundary masks, then
-    read each segment's inclusive total at its end position. Exact (pure
-    adds) and deterministic. Returns (C, M)."""
-    v = vals[:, ell.sigma]
-    for s in range(ell.shift_masks.shape[0]):
-        d = 1 << s
-        shifted = torch.nn.functional.pad(v, (d, 0))[:, :-d]
-        v = v + shifted * ell.shift_masks[s]
-    out = v[:, ell.seg_last]
-    return out * ell.has_obs
+    """Per-landmark sums of ``vals`` (C, K) over the layout's sorted slot
+    lists: the reduce kernel of ``ops.segmm`` on the card, its plain
+    version on the CPU. Deterministic. Returns (C, M)."""
+    return segmm.seg_reduce_sorted(vals, ell.sigma, ell.offsets)
 
 
 def inv3x3(A: torch.Tensor) -> torch.Tensor:
@@ -360,8 +349,7 @@ class SchurBlocks(NamedTuple):
     bl: torch.Tensor  # (3, M)
     pose_idx: torch.Tensor  # (K,) — non-decreasing (obs sorted by pose)
     lm_idx: torch.Tensor  # (K,)
-    lm_perm: torch.Tensor  # (K,) permutation sorting obs by landmark (flat)
-    lm_sorted: torch.Tensor  # (K,) lm_idx[lm_perm] (flat)
+    lm_order: EllLayout  # slots sorted by landmark: ``ell``, or the flat bank's
     free_pose: torch.Tensor  # (N,) or (N, D): 1.0 free, 0.0 gauge-fixed
     ell: object  # EllLayout | None
     C: torch.Tensor  # (F, D, D) pose-pose cross blocks
@@ -372,13 +360,7 @@ class SchurBlocks(NamedTuple):
 
 def _seg_lm(blocks: SchurBlocks, vals):
     """Reduce (C, K)/(C, N, Pmax) by landmark into (C, M)."""
-    C = vals.shape[0]
-    flat = vals.reshape(C, -1)
-    if blocks.ell is not None:
-        return ell_seg_reduce(flat, blocks.ell)
-    return _segment_sum(
-        flat[:, blocks.lm_perm], blocks.lm_sorted, blocks.bl.shape[-1]
-    )
+    return ell_seg_reduce(vals.reshape(vals.shape[0], -1), blocks.lm_order)
 
 
 def _seg_pose(blocks: SchurBlocks, vals):
@@ -429,12 +411,10 @@ def build_normal_equations(
     D = pose_dim if pose_dim is not None else Dj
     dtype = r.dtype
 
-    if ell is None:
-        lm_perm = torch.argsort(lm_idx, stable=True)
-        lm_sorted = lm_idx[lm_perm]
-    else:
-        lm_perm = lm_idx  # unused on the ELL path
-        lm_sorted = lm_idx
+    # the landmark-side reduce's slot order: the ELL layout's (host-built),
+    # or the flat bank's, sorted on the device
+    lm_order = ell if ell is not None else EllLayout(
+        *segmm.sorted_layout(lm_idx, num_landmarks))
 
     w = weights
     wJp = J_pose * w  # (2, Dj, ...)
@@ -467,16 +447,13 @@ def build_normal_equations(
 
         def seg_pose(vals):
             return torch.sum(vals.reshape(vals.shape[0], nb, -1), dim=-1)
-
-        def seg_lm(vals):
-            return ell_seg_reduce(vals.reshape(vals.shape[0], -1), ell)
     else:
 
         def seg_pose(vals):
             return _segment_sum(vals, pose_idx, num_poses)
 
-        def seg_lm(vals):
-            return _segment_sum(vals[:, lm_perm], lm_sorted, num_landmarks)
+    def seg_lm(vals):
+        return ell_seg_reduce(vals.reshape(vals.shape[0], -1), lm_order)
 
     Hpp = _embed_block(_assemble_sym(seg_pose(Hpp_k), Dj), D)  # (N, D, D)
     Hll = seg_lm(Hll_k)  # (6, M)
@@ -523,8 +500,8 @@ def build_normal_equations(
         C = C.to(Hpp.dtype)
     return SchurBlocks(
         Hpp=Hpp, Hll_inv=Hll_inv, W=W, bp=bp, bl=bl,
-        pose_idx=pose_idx, lm_idx=lm_idx, lm_perm=lm_perm,
-        lm_sorted=lm_sorted, free_pose=free_pose, ell=ell,
+        pose_idx=pose_idx, lm_idx=lm_idx, lm_order=lm_order,
+        free_pose=free_pose, ell=ell,
         C=C, ci=ci, cj=cj,
     )
 
@@ -546,8 +523,9 @@ def _broadcast_pose(blocks: SchurBlocks, x):
 
 
 def _gather_lm(blocks: SchurBlocks, y):
-    """Per-observation view of per-landmark data y (3, M)."""
-    yk = y[:, blocks.lm_idx]  # (3, K)
+    """Per-observation view of per-landmark data y (3, M): the broadcast
+    kernel of ``ops.segmm`` on the card."""
+    yk = segmm.seg_broadcast(y, blocks.lm_idx)  # (3, K)
     if blocks.ell is not None:
         return yk.reshape((3,) + tuple(blocks.W.shape[1:]))  # (3, N, Pmax)
     return yk
@@ -605,7 +583,7 @@ def _schur_self_blocks(blocks: SchurBlocks) -> torch.Tensor:
     (N, Dj, Dj) blocks — one sweep over the observation bank."""
     W = blocks.W
     Dj = W.shape[0] // 3
-    hk = blocks.Hll_inv[:, blocks.lm_idx]  # (6, K)
+    hk = segmm.seg_broadcast(blocks.Hll_inv, blocks.lm_idx)  # (6, K)
     if blocks.ell is not None:
         hk = hk.reshape((6,) + tuple(W.shape[1:]))
     # T[i, l] = sum_j W[i, j] Hinv[j, l]
@@ -665,13 +643,18 @@ def _sym3_full(s):
 def g_a_operands(blocks: SchurBlocks, c0: int, c1: int, plo: int, phi: int):
     """Contiguous ``(W, lm_slot, hinv)`` of the G/A build for poses
     [plo, phi) and landmark columns [c0, c1): ids are shifted by ``c0``,
-    so ids of other columns fall outside ``[0, c1 - c0)``."""
+    so ids of other columns fall outside ``[0, c1 - c0)``. On the card the
+    values are f32 whatever the storage dtype: the kernel's (and the
+    reference kernel's) f32 contract."""
     N = blocks.Hpp.shape[0]
     lm_slot = blocks.lm_idx.reshape(N, -1)
+    W, hinv = blocks.W[:, plo:phi], blocks.Hll_inv[:, c0:c1]
+    if W.is_cuda:
+        W, hinv = W.to(torch.float32), hinv.to(torch.float32)
     return (
-        blocks.W[:, plo:phi].contiguous(),
+        W.contiguous(),
         (lm_slot[plo:phi] - c0).contiguous(),
-        blocks.Hll_inv[:, c0:c1].contiguous(),
+        hinv.contiguous(),
     )
 
 

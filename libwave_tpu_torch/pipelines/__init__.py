@@ -1,6 +1,18 @@
 """End-to-end pipelines (port of ``libwave_tpu.pipelines``' visual front
-end)."""
+end and VIO)."""
 
+from libwave_tpu_torch.pipelines.vio import (  # noqa: F401
+    VIOConfig,
+    VIOProblem,
+    VIOState,
+    solve_vio,
+    solve_vio_staged,
+    vio_cost,
+    vio_dead_reckon,
+    vio_from_sim,
+    vio_marginalize_device,
+    vio_reduced_hessian,
+)
 from libwave_tpu_torch.pipelines.visual_frontend import (  # noqa: F401
     FrontendParams,
     detect_and_describe,

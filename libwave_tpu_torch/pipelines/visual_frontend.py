@@ -31,6 +31,7 @@ from libwave_tpu_torch.vision.detector import (
     ORBDetectorParams,
     detect_fast,
 )
+from libwave_tpu_torch.utils.device import resolve
 from libwave_tpu_torch.vision.tracker import (
     TrackerParams,
     TrackerState,
@@ -119,16 +120,14 @@ def track_sequence(frames, times=None,
     ``(frame, landmark_id, u, v)``.
 
     ``frames`` is a numpy array or a tensor, uint8 or float; the frames run
-    on ``device`` (default: the tensor's device, or the CPU for numpy).
+    on ``device`` (default: the card; ``"cpu"`` when the caller asks).
     ``times`` defaults to the frame index. ``generator`` draws the RANSAC
     samples (default: a generator on ``device`` seeded with 0). With
     ``scan`` True the whole stack goes to the device in its own dtype at
     once, with False one frame at a time; None (default) picks True when the
     stack is under 512 MB. The float cast happens on the device.
     """
-    if device is None:
-        device = frames.device if isinstance(frames, torch.Tensor) else "cpu"
-    device = torch.device(device)
+    device = resolve(device)
     if not isinstance(frames, torch.Tensor):
         frames = torch.from_numpy(np.ascontiguousarray(frames))
     T = frames.shape[0]

@@ -32,6 +32,7 @@ from libwave_tpu_torch.containers.landmark import (
     landmark_buffer,
 )
 from libwave_tpu_torch.utils.config import ConfigError
+from libwave_tpu_torch.utils.device import resolve
 from libwave_tpu_torch.vision.matcher import MatcherParams, match_descriptors
 
 
@@ -63,6 +64,8 @@ class TrackerState(NamedTuple):
 
 def tracker_init(params: TrackerParams, desc_words: int, dtype=torch.float32,
                  device=None) -> TrackerState:
+    """Empty tracker state on ``device`` (default: the card)."""
+    device = resolve(device)
     N = params.num_features
     return TrackerState(
         prev_xy=torch.zeros((N, 2), dtype=dtype, device=device),

@@ -1,6 +1,7 @@
-"""Card-only tests of the port: the G/A and Hamming CUDA kernels against
-their plain PyTorch versions, their input checks, and a small solve and a
-small front-end sequence through them.
+"""Card-only tests of the port: the G/A, segment and Hamming CUDA kernels
+against their plain PyTorch versions, their input checks, and small solves
+(explicit-S and matrix-free BA, dense and PCG VIO) and a small front-end
+sequence through them.
 
 Every test here needs a CUDA device and skips without one. The file
 imports no JAX, so on a machine with the card and without JAX it runs as
@@ -8,8 +9,10 @@ imports no JAX, so on a machine with the card and without JAX it runs as
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
 G/A kernel and plain version sum the same f32 terms, only the order of
-duplicate-id sums may differ: tolerance 1e-6 * max|plain|. The Hamming
-outputs are integers: exact equality.
+duplicate-id sums may differ: tolerance 1e-6 * max|plain|. The segment
+reduce adds in the plain version's order: within 1e-6 * sum|vals| of each
+output, bit-identical across runs; the broadcast copies: exact equality. The
+Hamming outputs are integers: exact equality.
 """
 
 import dataclasses
@@ -22,7 +25,8 @@ import torch
 from libwave_tpu_torch import bench_frontend, bench_problem
 from libwave_tpu_torch.ops import hamming, segmm
 from libwave_tpu_torch.optim import ba, schur
-from libwave_tpu_torch.pipelines import visual_frontend
+from libwave_tpu_torch.pipelines import vio, visual_frontend
+from libwave_tpu_torch.sim import vo_dataset
 
 
 @pytest.fixture
@@ -168,6 +172,135 @@ def test_small_sequence_through_top2_kernel(cuda_device):
                            hamming.hamming_top2_reference):
         tracks_p = visual_frontend.track_sequence(frames, device=cuda_device)
     np.testing.assert_array_equal(tracks, tracks_p)
-    cpu = visual_frontend.track_sequence(frames)
+    cpu = visual_frontend.track_sequence(frames, device="cpu")
     assert abs(len(tracks) - len(cpu)) <= 0.1 * max(len(tracks), len(cpu))
     assert len(tracks) >= 60
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C,K,M,dtype", [
+    (3, 60_000, 10_000, torch.float32), (6, 60_000, 10_000, torch.float32),
+    (1, 12_345, 777, torch.float32), (3, 5_001, 300, torch.float64),
+    (6, 1_000, 4_000, torch.float64),
+])
+def test_segment_kernels_match_plain(cuda_device, C, K, M, dtype):
+    gen = torch.Generator(device=cuda_device).manual_seed(K + M)
+    idx = torch.randint(-3, M + 3, (K,), generator=gen, dtype=torch.int32,
+                        device=cuda_device)  # ids < 0 and >= M
+    idx[: K // 10] = M // 2  # a long run; M > K leaves most segments empty
+    vals = torch.randn((C, K), generator=gen, dtype=dtype, device=cuda_device)
+    y = torch.randn((C, M), generator=gen, dtype=dtype, device=cuda_device)
+    sigma, offsets = segmm.sorted_layout(idx, M)
+    before = (segmm.seg_reduce_sorted.launches, segmm.seg_broadcast.launches)
+    out = segmm.seg_reduce_sorted(vals, sigma, offsets)
+    again = segmm.seg_reduce(vals, idx, M)
+    got = segmm.seg_broadcast(y, idx)
+    assert (segmm.seg_reduce_sorted.launches,
+            segmm.seg_broadcast.launches) == (before[0] + 2, before[1] + 1)
+    ref = segmm.seg_reduce_sorted_reference(vals, sigma, offsets)
+    scale = segmm.seg_reduce_sorted_reference(vals.abs(), sigma, offsets)
+    torch.cuda.synchronize()
+    assert out.dtype == dtype and torch.equal(out, again)
+    assert bool(((out - ref).abs() <= 1e-6 * scale).all())
+    assert torch.equal(got, segmm.seg_broadcast_reference(y, idx))
+    ok = (idx >= 0) & (idx < M)
+    assert not got[:, ~ok].any()
+
+
+@pytest.mark.cuda
+def test_segment_kernels_reject_what_they_do_not_take(cuda_device):
+    idx = torch.randint(0, 10, (100,), dtype=torch.int32, device=cuda_device)
+    vals = torch.randn((3, 100), device=cuda_device)
+    y = torch.randn((3, 10), device=cuda_device)
+    sigma, offsets = segmm.sorted_layout(idx, 10)
+    red, bc = segmm.seg_reduce_sorted, segmm.seg_broadcast
+    with pytest.raises(TypeError):
+        red(vals.half(), sigma, offsets)
+    with pytest.raises(TypeError):
+        red(vals, sigma.long(), offsets)
+    with pytest.raises(ValueError, match="device"):
+        red(vals, sigma.cpu(), offsets)
+    with pytest.raises(ValueError, match="contiguous"):
+        red(torch.randn((100, 3), device=cuda_device).T, sigma, offsets)
+    with pytest.raises(ValueError, match="do not fit"):
+        red(vals, sigma[:50].contiguous(), offsets)
+    with pytest.raises(TypeError):
+        bc(y.half(), idx)
+    with pytest.raises(TypeError):
+        bc(y, idx.long())
+    with pytest.raises(ValueError, match="device"):
+        bc(y, idx.cpu())
+    with pytest.raises(ValueError, match="contiguous"):
+        bc(torch.randn((10, 3), device=cuda_device).T, idx)
+    with pytest.raises(ValueError, match="2-D"):
+        bc(y[0], idx)
+
+
+def _launches():
+    return (segmm.dense_g_a.launches, segmm.seg_reduce_sorted.launches,
+            segmm.seg_broadcast.launches)
+
+
+def _plain_crossings():
+    return mock.patch.multiple(
+        segmm, seg_reduce_sorted=segmm.seg_reduce_sorted_reference,
+        seg_broadcast=segmm.seg_broadcast_reference)
+
+
+@pytest.mark.cuda
+def test_small_matrix_free_solve_through_segment_kernels(cuda_device):
+    problem, state = bench_problem.make_problem(
+        num_poses=20, num_landmarks=500, obs_per_pose=40, device=cuda_device
+    )
+    cfg = dataclasses.replace(bench_problem.bench_config(3),
+                              explicit_s="never")
+    cg = cfg.cg_max_iters
+    before = _launches()
+    _, info = ba.solve_ba(problem, state, cfg)
+    # per LM iteration: Hll, bl, back-substitution and one reduce per CG
+    # step; schur_rhs, the preconditioner and one broadcast per CG step
+    assert tuple(a - b for a, b in zip(_launches(), before)) == (
+        0, 3 * (3 + cg), 3 * (2 + cg))
+    with _plain_crossings():
+        _, info_p = ba.solve_ba(problem, state, cfg)
+    assert _launches()[1:] == (before[1] + 3 * (3 + cg),
+                               before[2] + 3 * (2 + cg))
+    costs, costs_p = info["costs"].cpu().numpy(), info_p["costs"].cpu().numpy()
+    assert np.isfinite(costs).all() and costs[-1] < float(info["initial_cost"])
+    np.testing.assert_allclose(costs, costs_p, rtol=1e-3)
+
+
+@pytest.mark.cuda
+def test_small_vio_solve_through_kernels(cuda_device):
+    """f64 VIO (9 keyframes, 30 landmarks) on the card against the CPU: PCG
+    through the segment kernels to rtol 1e-9; the dense path builds G/A in
+    f32 on the card (the kernel's contract) and f64 on the CPU: rtol 1e-2."""
+    params = vo_dataset.VoSimParams(nb_landmarks=30, steps=100, hz=10.0,
+                                    fx=200.0, fy=200.0)
+    out = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        ds = vo_dataset.generate_vo_dataset(params, seed=2, device=dev)
+        problem, gt = vio.vio_from_sim(ds, device=dev)
+        rng = np.random.default_rng(3)
+        init = gt._replace(
+            p=gt.p + torch.as_tensor(0.03 * rng.normal(size=gt.p.shape),
+                                     device=dev),
+            lm=gt.lm + torch.as_tensor(0.2 * rng.normal(size=gt.lm.shape),
+                                       device=dev),
+        )
+        for solver in ("auto", "pcg"):
+            cfg = vio.VIOConfig(max_iterations=4, cg_max_iters=30,
+                                solver=solver)
+            before = _launches()
+            _, info = vio.solve_vio(problem, init, cfg)
+            grew = tuple(a - b for a, b in zip(_launches(), before))
+            out[dev.type, solver] = (float(info["initial_cost"]),
+                                     float(info["final_cost"]), grew)
+    for solver, want in (("auto", (4, 12, 4)), ("pcg", (0, 4 * 33, 4 * 32))):
+        c0, c, grew = out["cuda", solver]
+        c0_cpu, c_cpu, grew_cpu = out["cpu", solver]
+        assert grew == want and grew_cpu == (0, 0, 0)
+        assert np.isfinite(c) and c < c0
+        np.testing.assert_allclose(c0, c0_cpu, rtol=1e-12)
+        np.testing.assert_allclose(c, c_cpu,
+                                   rtol=1e-2 if solver == "auto" else 1e-9)

@@ -55,7 +55,8 @@ def test_track_sequence_statistically_equivalent(frames):
     t_jax = jf.track_sequence(frames, params=jf.FrontendParams(),
                               key=jax.random.key(0))
     t_port = tf.track_sequence(frames, params=tf.FrontendParams(),
-                               generator=torch.Generator().manual_seed(0))
+                               generator=torch.Generator().manual_seed(0),
+                               device="cpu")
     n1, ids1, len1 = _stats(t_jax)
     n2, ids2, len2 = _stats(t_port)
     print(f"JAX: {n1} rows, {ids1} ids, mean length {len1:.3f}; "
@@ -75,11 +76,11 @@ def test_track_sequence_modes_and_inputs_agree(frames):
     numpy array or a tensor: the same loop on the same frames gives the same
     tracks. Tracks are contiguous in frames, as the tracker promises."""
     p = tf.FrontendParams()
-    ref = tf.track_sequence(frames[:4], params=p, scan=True)
+    ref = tf.track_sequence(frames[:4], params=p, scan=True, device="cpu")
     for kw in (dict(scan=False),
                dict(frames=torch.from_numpy(frames[:4].astype(np.float32))),
                dict(generator=torch.Generator().manual_seed(0))):
-        args = {"frames": frames[:4], "params": p, **kw}
+        args = {"frames": frames[:4], "params": p, "device": "cpu", **kw}
         np.testing.assert_array_equal(tf.track_sequence(**args), ref)
     assert ref.shape[1] == 4 and ref.dtype == np.float64
     lengths = np.bincount(ref[:, 1].astype(int))
@@ -108,6 +109,6 @@ def test_params_checks_and_orb_not_ported(frames):
         tf.FrontendParams(tracker=tf.TrackerParams(num_features=100))
     orb = tf.FrontendParams(method="orb")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tf.track_sequence(frames[:2], params=orb)
+        tf.track_sequence(frames[:2], params=orb, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tf.detect_and_describe(torch.from_numpy(frames[0]), orb)

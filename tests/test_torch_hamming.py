@@ -55,8 +55,8 @@ def test_top2_plain_equals_pallas(name, d1, d2, mask):
     ref = [np.asarray(x) for x in jax_top2(jnp.asarray(d1), jnp.asarray(d2), m)]
     tm = None if mask is None else torch.as_tensor(mask)
     before = hamming.hamming_top2.launches
-    got = hamming.hamming_top2(interop.desc_from_numpy(d1),
-                               interop.desc_from_numpy(d2), tm)
+    got = hamming.hamming_top2(interop.desc_from_numpy(d1, "cpu"),
+                               interop.desc_from_numpy(d2, "cpu"), tm)
     assert hamming.hamming_top2.launches == before  # the CPU runs no kernel
     for r, g in zip(ref, got):
         assert g.dtype == torch.int32
@@ -70,8 +70,8 @@ def test_top2_plain_equals_pallas(name, d1, d2, mask):
 def test_table_plain_equals_pallas(name, d1, d2, mask):
     ref = np.asarray(hamming_distance_pallas(jnp.asarray(d1), jnp.asarray(d2)))
     before = hamming.hamming_distance.launches
-    got = hamming.hamming_distance(interop.desc_from_numpy(d1),
-                                   interop.desc_from_numpy(d2))
+    got = hamming.hamming_distance(interop.desc_from_numpy(d1, "cpu"),
+                                   interop.desc_from_numpy(d2, "cpu"))
     assert hamming.hamming_distance.launches == before
     assert got.dtype == torch.int32
     np.testing.assert_array_equal(got.numpy(), ref)
@@ -83,7 +83,7 @@ def test_plain_versions_chunk_rows(monkeypatch):
     rng = np.random.default_rng(3)
     d1, d2 = _bank(rng, 45, 4), _bank(rng, 61, 4)
     mask = torch.as_tensor(rng.random(61) < 0.5)
-    t1, t2 = interop.desc_from_numpy(d1), interop.desc_from_numpy(d2)
+    t1, t2 = interop.desc_from_numpy(d1, "cpu"), interop.desc_from_numpy(d2, "cpu")
     whole = hamming.hamming_distance_reference(t1, t2)
     top = hamming.hamming_top2_reference(t1, t2, mask)
     monkeypatch.setattr(hamming, "_CHUNK_BYTES", 61 * 4 * 4 * 7)  # 7 rows
@@ -95,7 +95,7 @@ def test_plain_versions_chunk_rows(monkeypatch):
 
 def test_descriptor_words_cross_bit_for_bit():
     words = np.array([[0, 1, 2**31, 2**32 - 1]], np.uint32)
-    t = interop.desc_from_numpy(words)
+    t = interop.desc_from_numpy(words, "cpu")
     assert t.dtype == torch.int32
     assert t.tolist() == [[0, 1, -(2**31), -1]]
     np.testing.assert_array_equal(interop.desc_to_numpy(t), words)

@@ -39,7 +39,7 @@ _jax_get_track = jax.jit(jl.get_track, static_argnums=3)
 def test_batched_inserts_wrap_and_masks():
     rng = np.random.default_rng(0)
     bj = jl.landmark_buffer(13)
-    bt = tl.landmark_buffer(13)
+    bt = tl.landmark_buffer(13, device="cpu")
     _assert_buf_equal(bt, bj)
     # masked rows in the middle, at the end, all masked; then enough valid
     # rows to wrap the 13-slot ring twice
@@ -67,7 +67,7 @@ def test_batched_inserts_wrap_and_masks():
 
 def test_single_inserts_overwrite_and_wrap():
     bj = jl.landmark_buffer(4)
-    bt = tl.landmark_buffer(4)
+    bt = tl.landmark_buffer(4, device="cpu")
     rows = [(1.0, 0, 5, 0, (1.0, 2.0)), (2.0, 0, 5, 1, (3.0, 4.0)),
             (1.0, 0, 5, 0, (9.0, 9.0)),  # same key: overwrite in place
             (1.0, 1, 5, 0, (7.0, 7.0)), (3.0, 0, 6, 2, (5.0, 6.0)),
@@ -88,7 +88,7 @@ def test_queries_equal():
         bj = _jax_insert_batch(bj, *(jnp.asarray(a) for a in args[:5]),
                                mask=jnp.asarray(args[5]))
     bt = interop.landmark_buffer_from_jax_numpy(
-        jl.LandmarkBuffer(*(np.asarray(x) for x in bj))
+        jl.LandmarkBuffer(*(np.asarray(x) for x in bj)), "cpu"
     )
     _assert_buf_equal(bt, bj)
     times = np.asarray(bj.times)[np.asarray(bj.valid)]

@@ -48,7 +48,7 @@ def banks():
 
 
 def _torch_bank(xy, desc, m):
-    return (torch.from_numpy(xy), interop.desc_from_numpy(desc),
+    return (torch.from_numpy(xy), interop.desc_from_numpy(desc, "cpu"),
             torch.from_numpy(m))
 
 

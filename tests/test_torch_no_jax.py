@@ -35,7 +35,10 @@ assert not [m for m in sys.modules
             and sys.modules[m] is not None], "a JAX module was loaded"
 for new in ("ops.hamming", "vision.matcher", "vision.tracker",
             "containers.landmark", "pipelines.visual_frontend",
-            "bench_frontend", "sim.render", "utils.config"):
+            "bench_frontend", "sim.render", "utils.config", "ops.segmm",
+            "geometry.se3", "benchmark.trajectory", "optim.imu",
+            "kinematics.two_wheel", "vision.camera", "sim.vo_dataset",
+            "pipelines.vio", "utils.device"):
     assert "libwave_tpu_torch." + new in names, new
 print("imported", len(names), "modules")
 """
@@ -53,7 +56,7 @@ def test_port_and_chip_smoke_import_without_jax():
     proc = _run(["-c", IMPORT_ALL])
     assert proc.returncode == 0, proc.stderr
     count = int(proc.stdout.split()[1])
-    assert count >= 25  # the back end's and the front end's modules
+    assert count >= 38  # the back end's, the front end's and VIO's modules
 
 
 def test_chip_smoke_fails_without_cuda():

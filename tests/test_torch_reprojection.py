@@ -122,7 +122,7 @@ def test_behind_camera_masked():
     K = torch.eye(3, dtype=torch.float64)
     r, J_pose, J_lm, valid = trep.linearize_reprojection(
         K,
-        tso3.quat_identity((1,), torch.float64),
+        tso3.quat_identity((1,), torch.float64, "cpu"),
         torch.zeros((1, 3), dtype=torch.float64),
         torch.tensor([[0.0, 0.0, -2.0]], dtype=torch.float64),
         torch.zeros((1, 2), dtype=torch.float64),

@@ -3,7 +3,9 @@
 Random f64 observation banks (made with numpy from a seed) and the
 reference's synthetic BA dataset go through both packages. Tolerances:
 - host layout functions (pack_observations, build_ell_layout,
-  compute_band_plan): exact;
+  compute_band_plan): exact. The port's landmark layout is a stable
+  landmark-sorted slot list with CSR offsets; the JAX package's holds the
+  same order with log-shift masks and segment ends;
 - f64 elementwise and reduction outputs (W, Hpp, Hll_inv, bp, bl, matvec,
   rhs, preconditioner, back-substitution): rtol 1e-10, with atol 1e-12 *
   max|x| for entries that cancel to rounding level;
@@ -110,8 +112,8 @@ def _blocks(lin, layout, with_pg=True, sum_dtype=None, dtype=np.float64):
         *map(conv_t, args),
         **{k: (tuple(map(conv_t, v)) if isinstance(v, tuple) else conv_t(v))
            for k, v in kw.items()},
-        ell=None if ell is None else ts.EllLayout(
-            *(torch.as_tensor(np.array(x)) for x in ell)),
+        ell=None if ell is None else ts.build_ell_layout(
+            lin["lm_idx"], M, device="cpu"),
         sum_dtype=None if sum_dtype is None else torch.float64,
     )
     return bj, bt
@@ -123,12 +125,36 @@ def test_pack_observations_and_layout(rng):
     out_j = js.pack_observations(pose_idx[perm], lm_idx[perm], N, M,
                                  uv[perm], min_pmax=10)
     out_t = ts.pack_observations(pose_idx[perm], lm_idx[perm], N, M,
-                                 uv[perm], min_pmax=10)
+                                 uv[perm], min_pmax=10, device="cpu")
     for a, b in zip(out_j[:3] + out_j[4:], out_t[:3] + out_t[4:]):
         np.testing.assert_array_equal(b.numpy(), np.asarray(a))
-    for a, b in zip(out_j[3], out_t[3]):
-        assert b.numpy().dtype == np.asarray(a).dtype
-        np.testing.assert_array_equal(b.numpy(), np.asarray(a))
+    lm_ell, pad = np.asarray(out_j[1]), np.asarray(out_j[2]) > 0
+    assert not pad.all()  # min_pmax=10 pads every pose
+    check_layout(out_t[3], out_j[3], lm_ell, pad)
+    # every slot counts when no padding mask is given: the JAX order
+    full = ts.build_ell_layout(lm_ell, M, device="cpu")
+    np.testing.assert_array_equal(full.sigma.numpy(), np.asarray(out_j[3].sigma))
+    check_layout(full, out_j[3], lm_ell, np.ones_like(pad))
+
+
+def check_layout(ell_t, ell_j, lm_idx, valid):
+    """The port's (sigma, offsets) against the JAX package's layout of the
+    same bank: landmark m's run is its valid slots in slot order; runs end
+    where the JAX package's segments end."""
+    sigma, offsets = ell_t.sigma.numpy(), ell_t.offsets.numpy()
+    assert sigma.dtype == offsets.dtype == np.int32
+    assert offsets.shape == (M + 1,) and offsets[0] == 0
+    assert offsets[-1] == valid.sum()
+    np.testing.assert_array_equal(np.sort(sigma), np.arange(lm_idx.size))
+    has = np.asarray(ell_j.has_obs) > 0
+    for m in range(M):
+        run = sigma[offsets[m]:offsets[m + 1]]
+        np.testing.assert_array_equal(
+            run, np.nonzero((lm_idx == m) & valid)[0])
+        if valid.all():
+            assert (run.size > 0) == has[m]
+            if has[m]:
+                assert offsets[m + 1] - 1 == np.asarray(ell_j.seg_last)[m]
 
 
 @pytest.mark.parametrize("kw", [
@@ -148,7 +174,7 @@ def test_band_plan(kw, rng):
 
 def test_ell_seg_reduce_and_small_blocks(lin, rng):
     vals = rng.normal(size=(5, lin["lm_idx"].size))
-    ell_t = ts.EllLayout(*(torch.as_tensor(np.array(x)) for x in lin["ell"]))
+    ell_t = ts.build_ell_layout(lin["lm_idx"], M, device="cpu")
     close(ts.ell_seg_reduce(torch.as_tensor(vals), ell_t),
           js.ell_seg_reduce(jnp.asarray(vals), _to_jax(lin["ell"])))
     A = rng.normal(size=(7, 3, 3))

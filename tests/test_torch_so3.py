@@ -93,7 +93,7 @@ def test_boxplus_and_rotate(rng):
 
 
 def test_identity_and_roundtrip(rng):
-    qi = tso3.quat_identity((2, 3), torch.float64)
+    qi = tso3.quat_identity((2, 3), torch.float64, "cpu")
     assert qi.shape == (2, 3, 4)
     _close(jso3.quat_identity((2, 3), jnp.float64), qi)
     q = torch.as_tensor(_quats(rng)[:40])

@@ -71,14 +71,14 @@ def test_tracker_state_equal_over_five_frames(frame_banks, window):
     )
     tp = interop.params_from_jax(jp)
     sj = jt.tracker_init(jp, desc_words=16, dtype=jnp.float32)
-    st = tt.tracker_init(tp, desc_words=16)
+    st = tt.tracker_init(tp, desc_words=16, device="cpu")
     _assert_state_equal(st, sj)
     for i, (xy, desc, m) in enumerate(frame_banks):
         t = float(i) * 0.1
         sj = _jax_add(sj, jnp.asarray(xy), jnp.asarray(desc), jnp.asarray(m),
                       t, jax.random.key(i), jp)
         st = tt.add_image_features(
-            st, torch.from_numpy(xy), interop.desc_from_numpy(desc),
+            st, torch.from_numpy(xy), interop.desc_from_numpy(desc, "cpu"),
             torch.from_numpy(m), t, None, tp,
         )
         _assert_state_equal(st, sj)
@@ -134,12 +134,13 @@ def test_hand_built_scatter_rule(case):
     desc = np.asarray(curr, np.uint32)[:, None]
     mask = np.ones(n, bool)
     tp = interop.params_from_jax(jp)
-    st = interop.tracker_state_from_jax_numpy(jax.tree.map(np.asarray, sj))
+    st = interop.tracker_state_from_jax_numpy(jax.tree.map(np.asarray, sj),
+                                              "cpu")
     _assert_state_equal(st, sj)
     sj = jt.add_image_features(sj, jnp.asarray(xy), jnp.asarray(desc),
                                jnp.asarray(mask), 1.0, jax.random.key(0), jp)
     st = tt.add_image_features(st, torch.from_numpy(xy),
-                               interop.desc_from_numpy(desc),
+                               interop.desc_from_numpy(desc, "cpu"),
                                torch.from_numpy(mask), 1.0, None, tp)
     _assert_state_equal(st, sj)
     assert st.prev_ids.tolist() == expected
@@ -155,7 +156,7 @@ def test_offline_tracker_and_get_tracks(frame_banks):
 
     def detect_describe(i):
         xy, desc, m = banks[int(i)]
-        return (torch.from_numpy(xy), interop.desc_from_numpy(desc),
+        return (torch.from_numpy(xy), interop.desc_from_numpy(desc, "cpu"),
                 torch.from_numpy(m))
 
     times = torch.tensor([0.0, 0.1, 0.2])
