@@ -200,6 +200,49 @@ def make_problem(num_poses=200, num_landmarks=10_000, obs_per_pose=300,
     return problem, state
 
 
+def g_a_edge_cases(seed: int = 1):
+    """G/A inputs the headline problem does not make, as numpy arrays:
+    a list of ``(name, W (18, N, Pmax) f32, lm_slot (N, Pmax) int32,
+    hinv (6, M) f32, windows)``, each window ``(c0, c1, plo, phi)``. Ids
+    outside ``[0, M)`` (the pose-padding id -1, ids >= M) name no column;
+    duplicate ids within a pose sum."""
+    rng = np.random.default_rng(seed)
+    cases = []
+
+    def add(name, N, P, M, lo, hi, windows, edit=None):
+        W = rng.standard_normal((18, N, P)).astype(np.float32)
+        ids = rng.integers(lo, hi, (N, P)).astype(np.int32)
+        if edit is not None:
+            edit(ids, M)
+        hinv = rng.standard_normal((6, M)).astype(np.float32)
+        cases.append((name, W, ids, hinv, windows))
+
+    def dup_and_pad(ids, M):
+        P = ids.shape[1]
+        ids[:, : P // 4] = ids[:, :1]  # duplicates of the first slot's id
+        ids[0, :3] = -1
+        ids[-1, -3:] = M
+        ids[min(1, ids.shape[0] - 1)] = -1  # every id out of range
+
+    def spanning(ids, M):
+        ids[:, 3] = 7  # landmark 7 in every pose, twice
+        ids[:, 9] = 7
+
+    add("duplicates, ids -1 and >= M, Pmax=37, M=1000", 5, 37, 1000, -1,
+        1003, [(0, 1000, 0, 5), (100, 900, 1, 4)], dup_and_pad)
+    add("duplicates, Pmax=300, M=1000", 3, 300, 1000, -1, 1003,
+        [(0, 1000, 0, 3), (512, 1000, 2, 3)], dup_and_pad)
+    add("M=77, c1-c0 not a multiple of 4", 2, 600, 77, -1, 80,
+        [(0, 77, 0, 2), (5, 38, 0, 2), (3, 77, 0, 1)], dup_and_pad)
+    add("a run spanning 40 poses cut by the pose window, one-pose windows",
+        40, 16, 50, 0, 50,
+        [(0, 50, 0, 40), (0, 50, 5, 33), (7, 8, 0, 40), (0, 50, 17, 18)],
+        spanning)
+    add("empty runs (ids in [0, 50) of M=500)", 6, 20, 500, 0, 50,
+        [(0, 500, 0, 6), (40, 300, 2, 5)])
+    return cases
+
+
 def bench_config(iters: int = 10) -> BAConfig:
     """``bench.py``'s ``bench_backend`` configuration: ``iters`` LM
     iterations, 20 CG steps at tolerance 1e-5, convergence freeze off so

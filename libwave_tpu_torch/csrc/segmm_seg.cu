@@ -14,11 +14,17 @@
 //
 // The reduce runs over a landmark-sorted order that the caller already
 // holds: sigma (K,) lists the slots by landmark and the CSR offsets (M+1,)
-// bound each landmark's run in that list. One thread owns one (c, m) output
-// and adds vals[c, sigma[p]] for p in [offsets[m], offsets[m+1]) one at a
-// time, starting from zero: no atomics, and the result does not depend on
-// scheduling (the plain version in ops/segmm.py adds in the same order and
-// matches bit for bit). Accumulation is in the input type (f32 or f64).
+// bound each landmark's run in that list. One thread owns one (c, m) output;
+// it takes its run kBatch = 8 slots at a time, loading the batch's sigma
+// entries and then its vals[c, sigma[p]] gathers before adding any, so that
+// 8 independent gathers are in flight per thread, and adds them in slot
+// order from zero: no atomics, the result does not depend on scheduling,
+// and the plain version in ops/segmm.py, which adds in the same order
+// (+0.0 past a run's end, as here), matches bit for bit. A block owns 256
+// consecutive landmarks of one channel: where neighbouring landmarks are
+// seen by the same poses its gathers share L1 sectors. sigma is read once
+// per channel, sequentially within a run, a small share of the traffic
+// next to the gathers. Accumulation is in the input type (f32 or f64).
 //
 // The broadcast is one thread per (c, k): coalesced writes, ids read once
 // per channel, the gathered y values come from L2 (y is 120 KB at the
@@ -26,16 +32,22 @@
 //
 // Bound. Both are memory bound. The reduce must read vals (C*K values), sigma
 // (K ids) and offsets (M+1) and write C*M values: at the headline (C = 3,
-// K = 60,000, M = 10,000, f32) about 1.0 MB, 0.3 us at 3.35 TB/s. The
-// broadcast reads y and idx and writes C*K values. A thread whose landmark
-// has a long run (ELL padding slots all name landmark 0) serializes that run;
-// a warp per long segment is the next step.
+// K = 60,000, M = 10,000, f32) about 1.0 MB, 0.3 us at 3.35 TB/s. It cannot
+// get there: each gather vals[c, sigma[p]] pulls its own 32-byte sector
+// (the slots of one landmark lie in different poses), C*K sectors from L2;
+// and at the headline one launch plus the dependent offsets -> sigma -> vals
+// round trips take longer than the bytes. A lane group per landmark (8 lanes
+// over the run's slots, all channels, a shuffle fold in slot order) and one
+// thread per landmark for all channels measured no faster at the headline
+// and slower at long runs (bench_seg_designs.py holds them). The broadcast
+// reads y and idx and writes C*K values.
 
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kBatch = 8;  // slots of a run whose gathers fly together
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
@@ -50,10 +62,16 @@ __global__ void __launch_bounds__(kThreads)
   const int begin = offsets[m];
   const int end = offsets[m + 1];
   T acc = T(0);
-  // unrolled so that several id and value loads are in flight; the adds
-  // stay in slot order
-#pragma unroll 4
-  for (int p = begin; p < end; ++p) acc += v[sigma[p]];
+  for (int p = begin; p < end; p += kBatch) {
+    int k[kBatch];
+    T x[kBatch];
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) k[u] = p + u < end ? sigma[p + u] : -1;
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) x[u] = k[u] >= 0 ? v[k[u]] : T(0);
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) acc += x[u];
+  }
   out[static_cast<long long>(c) * M + m] = acc;
 }
 

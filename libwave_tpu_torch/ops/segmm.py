@@ -3,10 +3,14 @@
 Three kernels, each a hand-written Hopper kernel built with ``nvcc`` for
 ``sm_90a`` at first use and bound with ``ctypes``:
 
-- :func:`dense_g_a` (``csrc/segmm_g_a.cu``): the fused dense-Schur G/A
-  build. The dense reduced camera system (``optim.schur.
+- :func:`dense_g_a_window` (``csrc/segmm_g_a.cu``): the fused dense-Schur
+  G/A build. The dense reduced camera system (``optim.schur.
   dense_reduced_system``) needs the scatter G of per-observation W blocks
-  into landmark columns and A = G Hll^-1; both come out of one pass;
+  into landmark columns and A = G Hll^-1 for a window of poses and columns
+  (a band, a chunk or everything); both come out of one pass driven by the
+  landmark-sorted layout (:class:`EllLayout`), reading the full W and Hinv
+  through offsets. :func:`dense_g_a` keeps the reference's signature
+  (``dense_g_a_onehot``) and goes through the same kernel;
 - :func:`seg_reduce_sorted` / :func:`seg_reduce` (``csrc/segmm_seg.cu``):
   per-landmark sums, the landmark-side reduce of the Schur system;
 - :func:`seg_broadcast` (``csrc/segmm_seg.cu``): the gather ``y[:, idx]``,
@@ -27,14 +31,16 @@ The reference's segment reduce and broadcast run as one-hot K x M matmuls on
 the MXU, which its own docstring says loses at map-scale M. Here they are
 index operations again: the reduce sums each landmark's run of a
 landmark-sorted slot list (``sigma`` plus CSR ``offsets``, built host-side
-with the ELL layout) sequentially, one thread per (channel, landmark),
-without atomics, so kernel and plain version add in the same order.
+with the ELL layout) in slot order, one thread per (channel, landmark) with
+eight slots' gathers in flight, without atomics, so kernel and plain
+version add in the same order.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -47,8 +53,20 @@ _SYM3_AT = {
     (2, 0): 2, (2, 1): 4, (2, 2): 5,
 }
 
+
+class EllLayout(NamedTuple):
+    """A landmark-sorted slot list: landmark ``m``'s slots are
+    ``sigma[offsets[m]:offsets[m+1]]``, ascending. Built host-side with the
+    pose-ELL pack (``optim.schur.build_ell_layout``) or on the device
+    (:func:`sorted_layout`)."""
+
+    sigma: torch.Tensor  # (K,) int32 slots sorted by landmark, stable
+    offsets: torch.Tensor  # (M+1,) int32 CSR bounds of each landmark in sigma
+
+
 _KERNEL_SOURCES = ["segmm_g_a.cu"]
 _KERNEL_ROWS = 18  # Dj * 3 rows the CUDA kernel is instantiated for
+_TILE_POSES = 4  # poses per block of the G/A kernel (kTP in segmm_g_a.cu)
 _SEG_SOURCES = ["segmm_seg.cu"]
 _SEG_TYPES = {torch.float32: "f32", torch.float64: "f64"}
 _INT32_MAX = 2**31 - 1
@@ -80,11 +98,37 @@ def dense_g_a_reference(W: torch.Tensor, lm_slot: torch.Tensor,
     return g.reshape(N, C, M).to(W.dtype), A.reshape(N, C, M).to(W.dtype)
 
 
+def layout_ids(ell: EllLayout, K: int) -> torch.Tensor:
+    """(K,) int32 landmark id of every slot the layout lists in a run, -1
+    for the slots it lists in none; on the layout's device, without a host
+    read."""
+    sigma, offsets = ell
+    dev = sigma.device
+    pos = torch.arange(K, dtype=torch.int32, device=dev)
+    lm = torch.searchsorted(offsets[1:], pos, right=True).to(torch.int32)
+    listed = (pos >= offsets[0]) & (pos < offsets[-1])
+    ids = torch.empty(K, dtype=torch.int32, device=dev)
+    return ids.scatter_(0, sigma.long(), torch.where(listed, lm, -1))
+
+
+def dense_g_a_window_reference(W: torch.Tensor, ell: EllLayout,
+                               hinv: torch.Tensor, c0: int, c1: int,
+                               plo: int, phi: int):
+    """Plain PyTorch version of :func:`dense_g_a_window`: the slots' ids
+    from the layout, then the window's slice of W, ids (shifted by ``c0``)
+    and hinv through :func:`dense_g_a_reference`."""
+    _, N, P = W.shape
+    ids = layout_ids(ell, N * P).reshape(N, P)
+    return dense_g_a_reference(W[:, plo:phi], ids[plo:phi] - c0,
+                               hinv[:, c0:c1])
+
+
 @functools.cache
 def _library() -> tuple[ctypes.CDLL, str]:
     lib, log = _build.load("segmm_g_a", _KERNEL_SOURCES)
-    fn = lib.segmm_g_a_f32
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn = lib.segmm_g_a_window_f32
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [
+        ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return lib, log
 
@@ -93,6 +137,14 @@ def build() -> str:
     """Build (or reuse) and load the CUDA library; returns the compiler's
     ``-Xptxas -v`` report."""
     return _library()[1]
+
+
+def _check_rows(W):
+    if W.dim() != 3 or W.shape[0] != _KERNEL_ROWS:
+        raise ValueError(
+            f"dense_g_a on CUDA is built for W (Dj*3 = {_KERNEL_ROWS} rows, "
+            f"N, Pmax), got shape {tuple(W.shape)}"
+        )
 
 
 def _check_cuda_inputs(W, lm_slot, hinv):
@@ -111,62 +163,124 @@ def _check_cuda_inputs(W, lm_slot, hinv):
     if W.dim() != 3 or lm_slot.dim() != 2 or hinv.dim() != 2:
         raise ValueError("dense_g_a: expected W (C, N, P), lm_slot (N, P), "
                          "hinv (6, M)")
-    C, N, P = W.shape
-    if C != _KERNEL_ROWS:
-        raise ValueError(
-            f"dense_g_a on CUDA is built for Dj*3 = {_KERNEL_ROWS} rows, "
-            f"got {C}"
-        )
+    _check_rows(W)
+    _, N, P = W.shape
     if tuple(lm_slot.shape) != (N, P) or hinv.shape[0] != 6:
         raise ValueError(
             f"dense_g_a: shapes W {tuple(W.shape)}, lm_slot "
             f"{tuple(lm_slot.shape)}, hinv {tuple(hinv.shape)} disagree"
         )
-    if N > 65535:
-        raise ValueError(f"dense_g_a: at most 65535 pose rows per call, got {N}")
     for name, t in (("W", W), ("lm_slot", lm_slot), ("hinv", hinv)):
         if not t.is_contiguous():
             raise ValueError(f"dense_g_a: {name} must be contiguous")
 
 
+def _check_window_inputs(W, ell, hinv, c0, c1, plo, phi):
+    sigma, offsets = ell
+    for name, t in (("sigma", sigma), ("offsets", offsets), ("hinv", hinv)):
+        if t.device != W.device:
+            raise ValueError(f"dense_g_a_window: {name} is on {t.device}, W "
+                             f"on {W.device}; they must share one device")
+    if W.dtype != torch.float32 or hinv.dtype != torch.float32:
+        raise TypeError(f"dense_g_a_window on CUDA takes float32 W and hinv, "
+                        f"got {W.dtype} and {hinv.dtype}")
+    if sigma.dtype != torch.int32 or offsets.dtype != torch.int32:
+        raise TypeError(f"dense_g_a_window: sigma and offsets must be int32, "
+                        f"got {sigma.dtype} and {offsets.dtype}")
+    _check_rows(W)
+    _, N, P = W.shape
+    M = hinv.shape[1] if hinv.dim() == 2 else -1
+    if (hinv.dim() != 2 or hinv.shape[0] != 6
+            or tuple(sigma.shape) != (N * P,)
+            or tuple(offsets.shape) != (M + 1,)):
+        raise ValueError(
+            f"dense_g_a_window: W {tuple(W.shape)}, sigma "
+            f"{tuple(sigma.shape)}, offsets {tuple(offsets.shape)} and hinv "
+            f"{tuple(hinv.shape)} do not fit (sigma (N*Pmax,), offsets "
+            f"(M+1,), hinv (6, M))")
+    if not (0 <= c0 <= c1 <= M and 0 <= plo <= phi <= N):
+        raise ValueError(f"dense_g_a_window: window columns [{c0}, {c1}) "
+                         f"poses [{plo}, {phi}) outside M={M}, N={N}")
+    if N * P > _INT32_MAX or -(-(phi - plo) // _TILE_POSES) > 65535:
+        raise ValueError(f"dense_g_a_window: at most 2^31 - 1 slots and "
+                         f"{65535 * _TILE_POSES} poses per call, got N={N}, "
+                         f"Pmax={P}, poses [{plo}, {phi})")
+    for name, t in (("W", W), ("sigma", sigma), ("offsets", offsets),
+                    ("hinv", hinv)):
+        if not t.is_contiguous():
+            raise ValueError(f"dense_g_a_window: {name} must be contiguous")
+
+
+def dense_g_a_window(W: torch.Tensor, ell: EllLayout, hinv: torch.Tensor,
+                     c0: int, c1: int, plo: int, phi: int):
+    """Fused dense-Schur G/A build of the poses ``[plo, phi)`` and landmark
+    columns ``[c0, c1)``: ``W`` (Dj*3, N, Pmax) pose-ELL blocks
+    (component-major), ``ell`` the landmark-sorted layout of its N*Pmax
+    slots, ``hinv`` (6, M) inverted landmark blocks (symmetric components).
+    Returns ``(G, A)``, each (phi - plo, Dj*3, c1 - c0).
+
+    Only the slots the layout lists in landmark ``m``'s run go to column
+    ``m``; the package's layouts leave out only slots of zero weight.
+
+    On CUDA this launches ``csrc/segmm_g_a.cu`` on the current stream,
+    reading the full W, layout and hinv (float32 values, int32 layout,
+    contiguous; no copy), and counts the launch in
+    ``dense_g_a_window.launches``; inputs it does not take raise. On CPU it
+    returns :func:`dense_g_a_window_reference`.
+    """
+    if W.device.type == "cpu":
+        return dense_g_a_window_reference(W, ell, hinv, c0, c1, plo, phi)
+    if W.device.type != "cuda":
+        raise ValueError(f"dense_g_a_window: unsupported device {W.device}")
+    _check_window_inputs(W, ell, hinv, c0, c1, plo, phi)
+    C, N, P = W.shape
+    M = hinv.shape[1]
+    G = torch.empty((phi - plo, C, c1 - c0), dtype=W.dtype, device=W.device)
+    A = torch.empty_like(G)
+    if phi == plo or c1 == c0:
+        return G, A
+    lib, _ = _library()
+    with torch.cuda.device(W.device):
+        stream = torch.cuda.current_stream(W.device).cuda_stream
+        err = lib.segmm_g_a_window_f32(
+            W.data_ptr(), ell.sigma.data_ptr(), ell.offsets.data_ptr(),
+            hinv.data_ptr(), G.data_ptr(), A.data_ptr(), N, P, M, C, c0, c1,
+            plo, phi, stream,
+        )
+    if err != 0:
+        raise RuntimeError(
+            f"segmm_g_a_window_f32 launch failed: CUDA error {err}")
+    dense_g_a_window.launches += 1
+    return G, A
+
+
+# Kernel launches since the count was last reset (the CPU path adds nothing).
+dense_g_a_window.launches = 0
+
+
 def dense_g_a(W: torch.Tensor, lm_slot: torch.Tensor, hinv: torch.Tensor):
-    """Fused dense-Schur G/A build: ``W`` (Dj*3, N, Pmax) pose-ELL blocks
-    (component-major, padding slots zero), ``lm_slot`` (N, Pmax) landmark
-    ids, ``hinv`` (6, M) inverted landmark blocks (symmetric components).
+    """Fused dense-Schur G/A build with the reference's signature: ``W``
+    (Dj*3, N, Pmax) pose-ELL blocks (component-major, padding slots zero),
+    ``lm_slot`` (N, Pmax) landmark ids, ``hinv`` (6, M) inverted landmark
+    blocks (symmetric components) -> ``(G, A)`` each (N, Dj*3, M).
 
-    Entries of ``lm_slot`` outside ``[0, M)`` contribute zeros: chunked and
-    banded callers pass ``lm_slot - c0`` with a ``hinv`` column slice.
+    Entries of ``lm_slot`` outside ``[0, M)`` contribute zeros.
 
-    On CUDA this launches ``csrc/segmm_g_a.cu`` on the current stream and
-    counts the launch in ``dense_g_a.launches``; inputs it does not take
-    raise. On CPU it returns :func:`dense_g_a_reference`.
+    On CUDA the landmark-sorted layout of the ids is built on the device
+    (stable sort, then a search of every landmark's bound; no host read) and
+    :func:`dense_g_a_window` launches the kernel over every pose and column;
+    inputs it does not take raise. On CPU it returns
+    :func:`dense_g_a_reference`.
     """
     if W.device.type == "cpu":
         return dense_g_a_reference(W, lm_slot, hinv)
     if W.device.type != "cuda":
         raise ValueError(f"dense_g_a: unsupported device {W.device}")
     _check_cuda_inputs(W, lm_slot, hinv)
-    C, N, P = W.shape
+    _, N, _ = W.shape
     M = hinv.shape[1]
-    G = torch.empty((N, C, M), dtype=W.dtype, device=W.device)
-    A = torch.empty_like(G)
-    if N == 0 or M == 0:
-        return G, A
-    lib, _ = _library()
-    with torch.cuda.device(W.device):
-        stream = torch.cuda.current_stream(W.device).cuda_stream
-        err = lib.segmm_g_a_f32(
-            W.data_ptr(), lm_slot.data_ptr(), hinv.data_ptr(),
-            G.data_ptr(), A.data_ptr(), N, P, M, C, stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"segmm_g_a_f32 launch failed: CUDA error {err}")
-    dense_g_a.launches += 1
-    return G, A
-
-
-# Kernel launches since the count was last reset (the CPU path adds nothing).
-dense_g_a.launches = 0
+    return dense_g_a_window(W, sorted_layout(lm_slot.reshape(-1), M), hinv,
+                            0, M, 0, N)
 
 
 # ---------------------------------------------------------------------------
@@ -195,16 +309,16 @@ def seg_reduce_sorted_reference(vals: torch.Tensor, sigma: torch.Tensor,
     return out
 
 
-def sorted_layout(idx: torch.Tensor, num_segments: int):
-    """(sigma, offsets) int32 of ids ``idx`` (K,): a stable sort and the
-    CSR bounds of every segment in ``[0, num_segments)``, on ``idx``'s
-    device and without a host read. Ids outside the range fall outside
-    every segment."""
+def sorted_layout(idx: torch.Tensor, num_segments: int) -> EllLayout:
+    """:class:`EllLayout` (sigma, offsets; int32) of ids ``idx`` (K,): a
+    stable sort and the CSR bounds of every segment in
+    ``[0, num_segments)``, on ``idx``'s device and without a host read. Ids
+    outside the range fall outside every segment."""
     ids, sigma = torch.sort(idx.to(torch.int32), stable=True)
     bounds = torch.arange(num_segments + 1, dtype=torch.int32,
                           device=idx.device)
     offsets = torch.searchsorted(ids, bounds)
-    return sigma.to(torch.int32), offsets.to(torch.int32)
+    return EllLayout(sigma.to(torch.int32), offsets.to(torch.int32))
 
 
 def seg_reduce_reference(vals: torch.Tensor, idx: torch.Tensor,

@@ -38,7 +38,7 @@ import numpy as onp
 import torch
 
 from libwave_tpu_torch.ops import segmm
-from libwave_tpu_torch.ops.segmm import dense_g_a
+from libwave_tpu_torch.ops.segmm import EllLayout, dense_g_a_window
 from libwave_tpu_torch.utils.device import resolve
 
 
@@ -76,15 +76,6 @@ def _einsum(eq, *ops):
     for o in ops[1:]:
         dt = torch.promote_types(dt, o.dtype)
     return torch.einsum(eq, *(o.to(dt) for o in ops))
-
-
-class EllLayout(NamedTuple):
-    """Landmark-side reduce machinery for the pose-ELL observation order,
-    built host-side by :func:`build_ell_layout`: landmark ``m``'s slots are
-    ``sigma[offsets[m]:offsets[m+1]]``, in slot order."""
-
-    sigma: torch.Tensor  # (K,) int32 slots sorted by landmark, stable
-    offsets: torch.Tensor  # (M+1,) int32 CSR bounds of each landmark in sigma
 
 
 def pack_observations(pose_idx, lm_idx, num_poses, num_landmarks, *arrays,
@@ -413,8 +404,8 @@ def build_normal_equations(
 
     # the landmark-side reduce's slot order: the ELL layout's (host-built),
     # or the flat bank's, sorted on the device
-    lm_order = ell if ell is not None else EllLayout(
-        *segmm.sorted_layout(lm_idx, num_landmarks))
+    lm_order = ell if ell is not None else segmm.sorted_layout(
+        lm_idx, num_landmarks)
 
     w = weights
     wJp = J_pose * w  # (2, Dj, ...)
@@ -640,24 +631,6 @@ def _sym3_full(s):
     )
 
 
-def g_a_operands(blocks: SchurBlocks, c0: int, c1: int, plo: int, phi: int):
-    """Contiguous ``(W, lm_slot, hinv)`` of the G/A build for poses
-    [plo, phi) and landmark columns [c0, c1): ids are shifted by ``c0``,
-    so ids of other columns fall outside ``[0, c1 - c0)``. On the card the
-    values are f32 whatever the storage dtype: the kernel's (and the
-    reference kernel's) f32 contract."""
-    N = blocks.Hpp.shape[0]
-    lm_slot = blocks.lm_idx.reshape(N, -1)
-    W, hinv = blocks.W[:, plo:phi], blocks.Hll_inv[:, c0:c1]
-    if W.is_cuda:
-        W, hinv = W.to(torch.float32), hinv.to(torch.float32)
-    return (
-        W.contiguous(),
-        (lm_slot[plo:phi] - c0).contiguous(),
-        hinv.contiguous(),
-    )
-
-
 def _mm_f32(a, g):
     """``a @ g.T`` rounded to f32, the reference's f32 S_sub contract."""
     return (a @ g.T).to(torch.float32)
@@ -674,12 +647,16 @@ def dense_reduced_system(blocks: SchurBlocks,
     A @ G^T with A = G Hll^-1. No gauge projection is applied.
 
     G/A path (pose-ELL blocks on a CUDA device): G and A come from
-    :func:`libwave_tpu_torch.ops.segmm.dense_g_a`, the CUDA kernel, and
-    ``S_sub`` accumulates in f32. ``bands`` (a :class:`BandPlan`) contracts
-    only (pose-run x landmark-column-range) blocks, with static slice adds
-    into ``S_sub`` and explicit cross blocks between the runs of one
-    range. Without bands, ``max_g_bytes`` caps G: above it the build runs
-    chunked over landmark column ranges and ``S_sub`` accumulates.
+    :func:`libwave_tpu_torch.ops.segmm.dense_g_a_window`, the CUDA kernel,
+    one launch per build call, each reading the full W, the ELL layout and
+    Hll^-1 through its window bounds (no per-call copy), and ``S_sub``
+    accumulates in f32. On the card W and Hll^-1 are cast to f32 once per
+    call of this function (the kernel's f32 contract). ``bands`` (a
+    :class:`BandPlan`) contracts only (pose-run x landmark-column-range)
+    blocks, with static slice adds into ``S_sub`` and explicit cross blocks
+    between the runs of one range. Without bands, ``max_g_bytes`` caps G:
+    above it the build runs chunked over landmark column ranges and
+    ``S_sub`` accumulates.
 
     Otherwise G is a plain scatter-add and ``S_sub`` stays in W's dtype.
 
@@ -701,13 +678,21 @@ def dense_reduced_system(blocks: SchurBlocks,
         or (_force_path is None and blocks.W.is_cuda)
     )
     if use_kernel:
+        W, hinv = blocks.W, blocks.Hll_inv
+        if W.is_cuda:
+            W = W.to(torch.float32).contiguous()
+            hinv = hinv.to(torch.float32).contiguous()
+
+        def g_a(c0, c1, plo, phi):
+            return dense_g_a_window(W, blocks.ell, hinv, c0, c1, plo, phi)
+
         g_bytes = blocks.W.element_size() * N * Dj * 3 * M
         S_sub = torch.zeros((N * Dj, N * Dj), dtype=torch.float32, device=dev)
         if bands is not None:
             for (c0, c1, ranges) in bands.entries:
                 ga = []
                 for (plo, phi) in ranges:
-                    g3, a3 = dense_g_a(*g_a_operands(blocks, c0, c1, plo, phi))
+                    g3, a3 = g_a(c0, c1, plo, phi)
                     R = phi - plo
                     ga.append(
                         ((plo, phi), g3.reshape(R * Dj, -1),
@@ -726,12 +711,12 @@ def dense_reduced_system(blocks: SchurBlocks,
             CM = -(-M // chunks)
             for c in range(0, M, CM):
                 cm = min(CM, M - c)
-                g3, a3 = dense_g_a(*g_a_operands(blocks, c, c + cm, 0, N))
+                g3, a3 = g_a(c, c + cm, 0, N)
                 S_sub += _mm_f32(
                     a3.reshape(N * Dj, 3 * cm), g3.reshape(N * Dj, 3 * cm)
                 )
         else:
-            g3, a3 = dense_g_a(*g_a_operands(blocks, 0, M, 0, N))
+            g3, a3 = g_a(0, M, 0, N)
             # rows are (dj, j)-ordered: the 2D flatten is transpose-free
             S_sub = _mm_f32(
                 a3.reshape(N * Dj, 3 * M), g3.reshape(N * Dj, 3 * M)

@@ -9,9 +9,10 @@ imports no JAX, so on a machine with the card and without JAX it runs as
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
 G/A kernel and plain version sum the same f32 terms, only the order of
-duplicate-id sums may differ: tolerance 1e-6 * max|plain|. The segment
-reduce adds in the plain version's order: within 1e-6 * sum|vals| of each
-output, bit-identical across runs; the broadcast copies: exact equality. The
+duplicate-id sums may differ: tolerance 1e-6 * max|plain|, and exact
+equality at every cell that takes at most one nonzero slot. The segment
+reduce adds in the plain version's order: equal bit for bit, and
+bit-identical across runs; the broadcast copies: exact equality. The
 Hamming outputs are integers: exact equality.
 """
 
@@ -55,9 +56,9 @@ def _inputs(rng, dev, N, P, M, lo, hi):
 def test_kernel_matches_plain(cuda_device, N, P, M, lo, hi):
     W, ids, hinv = _inputs(np.random.default_rng(0), cuda_device, N, P, M,
                            lo, hi)
-    before = segmm.dense_g_a.launches
+    before = segmm.dense_g_a_window.launches
     G, A = segmm.dense_g_a(W, ids, hinv)
-    assert segmm.dense_g_a.launches == before + 1
+    assert segmm.dense_g_a_window.launches == before + 1
     Gr, Ar = segmm.dense_g_a_reference(W, ids, hinv)
     torch.cuda.synchronize()
     for x, ref in ((G, Gr), (A, Ar)):
@@ -88,15 +89,84 @@ def test_small_solve_through_kernel(cuda_device):
     )
     cfg = dataclasses.replace(bench_problem.bench_config(3),
                               explicit_s="always")
-    before = segmm.dense_g_a.launches
+    before = segmm.dense_g_a_window.launches
     _, info = ba.solve_ba(problem, state, cfg)
     calls = sum(len(r) for _, _, r in problem.bands.entries)
-    assert segmm.dense_g_a.launches - before == 3 * calls
-    with mock.patch.object(schur, "dense_g_a", segmm.dense_g_a_reference):
+    assert segmm.dense_g_a_window.launches - before == 3 * calls
+    with mock.patch.object(schur, "dense_g_a_window",
+                           segmm.dense_g_a_window_reference):
         _, info_p = ba.solve_ba(problem, state, cfg)
     costs, costs_p = info["costs"].cpu().numpy(), info_p["costs"].cpu().numpy()
     assert np.isfinite(costs).all() and costs[-1] < float(info["initial_cost"])
     np.testing.assert_allclose(costs, costs_p, rtol=1e-3)
+
+
+def _assert_g_a_close(G, A, Gr, Ar, single):
+    """Within 1e-6 * max|plain|, and equal where ``single`` (cells with at
+    most one nonzero slot)."""
+    for x, ref in ((G, Gr), (A, Ar)):
+        assert float((x - ref).abs().max()) <= 1e-6 * float(ref.abs().max())
+        assert torch.equal(x[single], ref[single])
+
+
+def _nonzero_slots(W, ids, M):
+    """(N, 1, M) count of the slots with a nonzero W naming each column."""
+    ok = (ids >= 0) & (ids < M) & (W != 0).any(0)
+    count = torch.zeros((ids.shape[0], M), dtype=torch.int32, device=W.device)
+    count.scatter_add_(1, torch.where(ok, ids, 0).long(), ok.int())
+    return count[:, None, :]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", range(len(bench_problem.g_a_edge_cases())))
+def test_window_kernel_matches_plain(cuda_device, case):
+    name, W, ids, hinv, windows = bench_problem.g_a_edge_cases()[case]
+    W, ids, hinv = (torch.as_tensor(a, device=cuda_device)
+                    for a in (W, ids, hinv))
+    M = hinv.shape[1]
+    ell = segmm.sorted_layout(ids.reshape(-1), M)
+    for c0, c1, plo, phi in windows:
+        before = segmm.dense_g_a_window.launches
+        G, A = segmm.dense_g_a_window(W, ell, hinv, c0, c1, plo, phi)
+        assert segmm.dense_g_a_window.launches == before + 1
+        sl = (W[:, plo:phi], ids[plo:phi] - c0, hinv[:, c0:c1])
+        Gr, Ar = segmm.dense_g_a_reference(*sl)
+        Gw, Aw = segmm.dense_g_a_window_reference(W, ell, hinv, c0, c1, plo,
+                                                  phi)
+        single = (_nonzero_slots(*sl[:2], c1 - c0) <= 1).expand_as(G)
+        torch.cuda.synchronize()
+        assert G.shape == (phi - plo, 18, c1 - c0), name
+        _assert_g_a_close(G, A, Gr, Ar, single)
+        _assert_g_a_close(G, A, Gw, Aw, single)
+
+
+@pytest.mark.cuda
+def test_window_kernel_rejects_what_it_does_not_take(cuda_device):
+    W, ids, hinv = _inputs(np.random.default_rng(1), cuda_device, 3, 16, 20,
+                           0, 20)
+    ell = segmm.sorted_layout(ids.reshape(-1), 20)
+    fn = segmm.dense_g_a_window
+    with pytest.raises(TypeError):
+        fn(W.double(), ell, hinv, 0, 20, 0, 3)
+    with pytest.raises(TypeError):
+        fn(W, segmm.EllLayout(ell.sigma.long(), ell.offsets), hinv, 0, 20,
+           0, 3)
+    with pytest.raises(ValueError, match="contiguous"):
+        fn(W.transpose(1, 2).contiguous().transpose(1, 2), ell, hinv, 0, 20,
+           0, 3)
+    with pytest.raises(ValueError, match="outside"):
+        fn(W, ell, hinv, 0, 21, 0, 3)
+    with pytest.raises(ValueError, match="outside"):
+        fn(W, ell, hinv, 5, 4, 0, 3)
+    with pytest.raises(ValueError, match="outside"):
+        fn(W, ell, hinv, 0, 20, 2, 4)
+    with pytest.raises(ValueError, match="do not fit"):
+        fn(W, segmm.sorted_layout(ids.reshape(-1), 19), hinv, 0, 19, 0, 3)
+    with pytest.raises(ValueError, match="device"):
+        fn(W, segmm.EllLayout(ell.sigma.cpu(), ell.offsets), hinv, 0, 20,
+           0, 3)
+    G, A = fn(W, ell, hinv, 4, 4, 0, 3)
+    assert G.shape == A.shape == (3, 18, 0)
 
 
 def _words(rng, dev, n, w):
@@ -181,7 +251,8 @@ def test_small_sequence_through_top2_kernel(cuda_device):
 @pytest.mark.parametrize("C,K,M,dtype", [
     (3, 60_000, 10_000, torch.float32), (6, 60_000, 10_000, torch.float32),
     (1, 12_345, 777, torch.float32), (3, 5_001, 300, torch.float64),
-    (6, 1_000, 4_000, torch.float64),
+    (6, 1_000, 4_000, torch.float64), (6, 60_000, 500, torch.float64),
+    (2, 7_777, 50, torch.float32), (5, 3_000, 100, torch.float64),
 ])
 def test_segment_kernels_match_plain(cuda_device, C, K, M, dtype):
     gen = torch.Generator(device=cuda_device).manual_seed(K + M)
@@ -198,10 +269,9 @@ def test_segment_kernels_match_plain(cuda_device, C, K, M, dtype):
     assert (segmm.seg_reduce_sorted.launches,
             segmm.seg_broadcast.launches) == (before[0] + 2, before[1] + 1)
     ref = segmm.seg_reduce_sorted_reference(vals, sigma, offsets)
-    scale = segmm.seg_reduce_sorted_reference(vals.abs(), sigma, offsets)
     torch.cuda.synchronize()
     assert out.dtype == dtype and torch.equal(out, again)
-    assert bool(((out - ref).abs() <= 1e-6 * scale).all())
+    assert torch.equal(out, ref)
     assert torch.equal(got, segmm.seg_broadcast_reference(y, idx))
     ok = (idx >= 0) & (idx < M)
     assert not got[:, ~ok].any()
@@ -237,7 +307,7 @@ def test_segment_kernels_reject_what_they_do_not_take(cuda_device):
 
 
 def _launches():
-    return (segmm.dense_g_a.launches, segmm.seg_reduce_sorted.launches,
+    return (segmm.dense_g_a_window.launches, segmm.seg_reduce_sorted.launches,
             segmm.seg_broadcast.launches)
 
 

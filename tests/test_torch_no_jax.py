@@ -38,7 +38,7 @@ for new in ("ops.hamming", "vision.matcher", "vision.tracker",
             "bench_frontend", "sim.render", "utils.config", "ops.segmm",
             "geometry.se3", "benchmark.trajectory", "optim.imu",
             "kinematics.two_wheel", "vision.camera", "sim.vo_dataset",
-            "pipelines.vio", "utils.device"):
+            "pipelines.vio", "utils.device", "launch_count"):
     assert "libwave_tpu_torch." + new in names, new
 print("imported", len(names), "modules")
 """

@@ -27,6 +27,7 @@ from libwave_tpu.optim import ba as jba
 from libwave_tpu.optim import schur as js
 from libwave_tpu.sim import VoSimParams, generate_vo_dataset
 from libwave_tpu_torch import interop
+from libwave_tpu_torch.ops import segmm
 from libwave_tpu_torch.optim import ba as tba
 from libwave_tpu_torch.optim import schur as ts
 
@@ -290,30 +291,54 @@ def dataset_blocks():
     return problem, bj, bt
 
 
+def _form_kw(form, problem, n, m):
+    """(port kwargs, reference kwargs) of ``dense_reduced_system`` for one
+    form of the explicit S."""
+    if form == "scatter":
+        return {}, {}
+    if form == "g_a_full":
+        return dict(_force_path="kernel"), dict(_force_path="kernel")
+    if form == "chunked":
+        g_bytes = 4 * n * 6 * 3 * m
+        kw = dict(max_g_bytes=g_bytes / 3.5, _force_path="kernel")
+        return kw, dict(kw)
+    pad = (np.asarray(problem.weight) > 0).astype(np.float64)
+    plan = js.compute_band_plan(np.asarray(problem.lm_idx), pad, n, m,
+                                chunk_cols=32, max_ranges=3, gap_tol=1)
+    assert len(plan.entries) > 1
+    assert any(len(r) > 1 for (_, _, r) in plan.entries)
+    return (dict(bands=ts.BandPlan(plan.entries), _force_path="kernel"),
+            dict(bands=plan, _force_path="kernel"))
+
+
 @pytest.mark.parametrize("form", ["scatter", "g_a_full", "chunked", "banded"])
 def test_reduced_system_forms(form, dataset_blocks):
     problem, bj, bt = dataset_blocks
     S_ref = np.asarray(js.dense_reduced_system(bj))
     n, m = bt.Hpp.shape[0], bt.bl.shape[-1]
-    kw, jkw = {}, {}
-    if form == "scatter":
-        kw = jkw = {}
-    elif form == "g_a_full":
-        kw, jkw = dict(_force_path="kernel"), dict(_force_path="kernel")
-    elif form == "chunked":
-        g_bytes = 4 * n * 6 * 3 * m
-        kw = dict(max_g_bytes=g_bytes / 3.5, _force_path="kernel")
-        jkw = dict(kw)
-    else:
-        pad = (np.asarray(problem.weight) > 0).astype(np.float64)
-        plan = js.compute_band_plan(np.asarray(problem.lm_idx), pad, n, m,
-                                    chunk_cols=32, max_ranges=3, gap_tol=1)
-        assert len(plan.entries) > 1
-        assert any(len(r) > 1 for (_, _, r) in plan.entries)
-        kw = dict(bands=ts.BandPlan(plan.entries), _force_path="kernel")
-        jkw = dict(bands=plan, _force_path="kernel")
+    kw, jkw = _form_kw(form, problem, n, m)
     S_t = ts.dense_reduced_system(bt, **kw).numpy()
     S_j = np.asarray(js.dense_reduced_system(bj, **jkw))
     tol = 2e-5 * np.abs(S_ref).max()
     np.testing.assert_allclose(S_t, S_j, rtol=1e-4, atol=tol)
     np.testing.assert_allclose(S_t, S_ref, rtol=1e-4, atol=tol)
+
+
+@pytest.mark.parametrize("form", ["g_a_full", "chunked", "banded"])
+def test_reduced_system_window_route_matches_slices(form, dataset_blocks,
+                                                    monkeypatch):
+    """The G/A path through the window entry point (full W, the layout and
+    window bounds) gives the S that slicing W, lm_idx - c0 and Hll^-1 per
+    build call gave, bit for bit."""
+    problem, _, bt = dataset_blocks
+    n, m = bt.Hpp.shape[0], bt.bl.shape[-1]
+    kw, _ = _form_kw(form, problem, n, m)
+    S_window = ts.dense_reduced_system(bt, **kw)
+    lm_slot = bt.lm_idx.reshape(n, -1)
+
+    def sliced(W, ell, hinv, c0, c1, plo, phi):
+        return segmm.dense_g_a_reference(
+            W[:, plo:phi], lm_slot[plo:phi] - c0, hinv[:, c0:c1])
+
+    monkeypatch.setattr(ts, "dense_g_a_window", sliced)
+    assert torch.equal(S_window, ts.dense_reduced_system(bt, **kw))
