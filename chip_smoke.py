@@ -6,8 +6,9 @@
 needs one CUDA device and ``nvcc`` (found through ``CUDA_HOME`` or ``PATH``);
 it imports no JAX. Phases, each reported on its own line:
 
-1. device: the card's name and power limit (from ``nvidia-smi``), the
-   torch and CUDA versions; no CUDA device is a failure, never a CPU run;
+1. device: the card's name, power limit and maximum SM clock (from
+   ``nvidia-smi``), its SM count, the torch and CUDA versions; no CUDA
+   device is a failure, never a CPU run;
 2. build: compiles ``libwave_tpu_torch/csrc/segmm_g_a.cu``,
    ``libwave_tpu_torch/csrc/segmm_seg.cu`` and
    ``libwave_tpu_torch/csrc/hamming.cu`` for sm_90a, one nvcc each, started
@@ -44,10 +45,14 @@ it imports no JAX. Phases, each reported on its own line:
    against the CPU;
 5. seg: the segment reduce and broadcast kernels against their plain
    versions at the headline's shapes (C = 3 and 6, K = 60,000, M = 10,000),
-   the matrix-free profile's K = 480,000 and ``ba_large``'s K = 600,000,
-   M = 100,000, and on edge cases (ids < 0 and >= M, empty segments, C = 1
-   and 5, unaligned K, runs of ~120 slots at C = 6 in f64): both bit for
-   bit, the reduce bit-identical across two runs; then the
+   the matrix-free profile's K = 480,000 and ``ba_large``'s problem
+   (K = 600,000, M = 100,000, ids ordered by bearing), and on edge cases
+   (ids < 0 and >= M, empty segments, C = 1 and 5, unaligned K, runs of
+   ~120 slots at C = 6 in f64; for the broadcast
+   ``bench_problem.broadcast_edge_cases``: K = 1, 3, 4,096, 4,097, C = 1,
+   3, 5, 6, M = 300 and 22,000 (y past 384 KB), ids with storage offset 0
+   and 1, f32 and f64):
+   both bit for bit, the reduce bit-identical across two runs; then the
    kernel, the plain version and the one PyTorch call that computes the
    same function (``index_add_`` into zeros; ``index_select`` on y padded
    with a zero column), each timed as device time;
@@ -74,8 +79,13 @@ it imports no JAX. Phases, each reported on its own line:
 8. hamming: both Hamming kernels against their plain versions on the card,
    exactly equal (integer outputs), at the frame's 512 x 512 x 16, at an
    unaligned 300 x 700 x 8 with ties, mask zeros, an all-masked bank and a
-   single live column, the top-2 at 16,384^2 x 16 and the table at
-   4,096^2 x 16; each timed against its plain version as device time;
+   single live column, at ``bench_frontend.top2_edge_cases`` (ties across
+   and within the top-2's lanes, the only live column last, N2 = 1, 7, 33,
+   100, 1,500, 4,500 and 2,200 query rows), the top-2 at 2,048^2 x 16 and
+   16,384^2 x 16 and the table at 4,096^2 x 16; each timed against its
+   plain version as device
+   time, and the table against
+   ``torch.cdist(p=0)`` on the banks unpacked to 0/1 f32 bits;
 9. pair: ``bench.py``'s two-frame pair (480x640 blobs and their (4, 7) roll,
    FAST-512, BRISK, knn ratio + RANSAC) on the card: one top-2 launch per
    pair, pairs/s with the kernel and with the plain top-2; then the same pair
@@ -93,7 +103,9 @@ The line before the last is a JSON object describing each kernel (its
 launches on its main path, its largest difference from the plain version,
 its time, the plain version's and the library call's, and its bound: the
 larger of the bytes it must move over 3.35 TB/s and its operations over
-67 TFLOP/s, the H100 SXM's HBM rate and non-tensor f32 rate); the last
+67 TFLOP/s, the H100 SXM's HBM rate and non-tensor f32 rate; the Hamming
+kernels' XOR + popcount word operations over the popcount issue rate, 16
+per SM per clock at this card's SM count and maximum SM clock); the last
 line is ``{"ok": true, "device": {...}}``. Any failed phase raises and the
 script exits non-zero without that line.
 """
@@ -142,6 +154,9 @@ BROADCAST_REPLACES = "libwave_tpu/ops/segmm.py:117"
 # sheet), the denominators of every kernel's bound
 HBM_BYTES_PER_S = 3.35e12
 ALU_OPS_PER_S = 67e12
+# __popc issues at 16 per SM per clock on Hopper (sm_90): the Hamming
+# kernels' rate is this times the SM count times the maximum SM clock
+POPC_PER_SM_CLOCK = 16
 LM_ITERS = 10
 # kernels of one explicit-S LM iteration when the dense reduced system still
 # copied W, lm_slot - c0 and Hinv per G/A call (3 per call, 39 per
@@ -182,10 +197,19 @@ def phase_device():
          "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip().splitlines()[0]
+    clock = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip().splitlines()[0]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    popc_rate = POPC_PER_SM_CLOCK * sms * float(clock) * 1e6
     print(f"device: {name} | torch {torch.__version__} | CUDA "
-          f"{torch.version.cuda} | {torch.cuda.device_count()} device(s)")
+          f"{torch.version.cuda} | {torch.cuda.device_count()} device(s) | "
+          f"{sms} SMs, max SM clock {clock} MHz: {popc_rate:.4e} popcounts/s "
+          f"({POPC_PER_SM_CLOCK} per SM per clock)")
     print(f"nvidia-smi: {smi}")
-    return name, smi
+    return name, smi, popc_rate
 
 
 COUNTED = {
@@ -208,11 +232,12 @@ def launch_counts():
     return {name: fn.launches for name, fn in COUNTED.items()}
 
 
-def bound(nbytes, ops=0.0):
+def bound(nbytes, ops=0.0, ops_per_s=ALU_OPS_PER_S):
     """(bound_ms, bound_by): the larger of moving ``nbytes`` over the HBM
-    rate and doing ``ops`` over the non-tensor ALU rate."""
+    rate and doing ``ops`` at ``ops_per_s`` (by default the non-tensor f32
+    rate)."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / ALU_OPS_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -542,13 +567,12 @@ def _seg_compare(case, kern, got, ref, stats):
 def _seg_cases(problem, dev):
     """(name, C, dtype, sigma, offsets, idx, M) cases: the headline layout,
     the matrix-free profile's 2,400 observations per pose, ba_large's
-    shape with random ids, and small edge cases."""
+    problem, and small edge cases."""
     ell = problem.ell
     M = problem.bands.entries[-1][1]
     big, _ = bench_problem.make_problem(obs_per_pose=2400, device=dev)
+    large, _ = bench_problem.ba_large_problem(device=dev)
     gen = torch.Generator(device=dev).manual_seed(5)
-    large = torch.randint(0, 100_000, (600_000,), generator=gen, device=dev,
-                          dtype=torch.int32)
     edge = torch.randint(-3, 780, (12_345,), generator=gen, device=dev,
                          dtype=torch.int32)
     edge[100:400] = 500  # a long run; ids 777..779 and < 0 are outside
@@ -563,8 +587,8 @@ def _seg_cases(problem, dev):
          problem.lm_idx, M),
         ("profile K=480,000", 3, torch.float32, big.ell.sigma,
          big.ell.offsets, big.lm_idx, M),
-        ("ba_large K=600,000 M=100,000", 3, torch.float32,
-         *segmm.sorted_layout(large, 100_000), large, 100_000),
+        ("ba_large K=600,000 M=100,000", 3, torch.float32, large.ell.sigma,
+         large.ell.offsets, large.lm_idx, 100_000),
         ("edge C=1 K=12,345 M=777, ids < 0 and >= M, empty segments", 1,
          torch.float32, *segmm.sorted_layout(edge, 777), edge, 777),
         ("edge long runs C=6 f64 K=60,000 M=500", 6, torch.float64,
@@ -601,10 +625,23 @@ def phase_seg(problem, dev, smi):
                      segmm.seg_broadcast_reference(y, bidx),
                      stats["seg_broadcast"])
         timed[name] = (vals, sigma, offsets, idx, y, M)
+    edges = 0
+    for name, y, ids, off in bench_problem.broadcast_edge_cases():
+        for dtype in (torch.float32, torch.float64):
+            yt = torch.as_tensor(y, device=dev).to(dtype)
+            idx = torch.as_tensor(ids, device=dev)[off:]
+            _seg_compare(f"broadcast edge {name} {dtype}", "broadcast",
+                         segmm.seg_broadcast(yt, idx),
+                         segmm.seg_broadcast_reference(yt, idx),
+                         stats["seg_broadcast"])
+            edges += 1
     print(f"seg: reduce and broadcast equal their plain versions bit for bit "
           f"(max abs err {stats['seg_reduce']['max_abs_err']:.3e} and "
           f"{stats['seg_broadcast']['max_abs_err']:.3e}), the reduce "
-          f"bit-identical across two runs, at {', '.join(timed)}")
+          f"bit-identical across two runs, at {', '.join(timed)}; the "
+          f"broadcast also at {edges} edge cases (K = 1, 3, 4,096, 4,097; "
+          f"C = 1, 3, 5, 6; M = 300 and 22,000; ids with storage offset 0 "
+          f"and 1; f32 and f64)")
 
     for name, (vals, sigma, offsets, idx, y, M) in timed.items():
         if name.startswith("edge") or "f64" in name:
@@ -765,10 +802,12 @@ def phase_vio(dev, smi):
     it = bench_problem.vio_config().max_iterations
     cg = bench_problem.vio_config().cg_max_iters
     ate0 = _ate(gt, init)
+    aligned = K % 4 == 0 and problem.lm_idx.data_ptr() % 16 == 0
     print(f"vio: bench_vio's problem built by the port from seeds 2, 3, 4 "
           f"(its own draws, not the JAX package's): {N} keyframes, {M} "
-          f"landmarks, {K} observation slots, f32; ATE of the start "
-          f"{ate0:.6f} m")
+          f"landmarks, {K} observation slots (K % 4 = {K % 4}: the broadcast "
+          f"takes its {'16-byte' if aligned else 'scalar'} path), f32; ATE "
+          f"of the start {ate0:.6f} m")
     src = Path(inspect.getsourcefile(schur))
     linalg_sites = {f"{src}:{i}" for i, line in
                     enumerate(src.read_text().splitlines(), 1)
@@ -857,12 +896,16 @@ def _hamming_cases(frames, dev):
     big2 = bank(16384, 16)
     big1 = big2[rng.permutation(16384)].copy()
     big1 ^= (rng.random(big1.shape) < 0.05).astype(np.int32) << 7  # near copies
+    edges = [(f"edge: {name}", t(a.view(np.int32)), t(b.view(np.int32)),
+              None if m is None else t(m))
+             for name, a, b, m in bench_frontend.top2_edge_cases()]
     return {
         "both": [
             ("frame 512x512x16", d_prev, d_curr, m_curr),
             ("300x700x8 ties, mask zeros", t(d1), t(d2), t(mask)),
             ("300x700x8 all masked", t(d1), t(d2), t(np.zeros(700, bool))),
             ("300x700x8 one live column", t(d1), t(d2), t(one)),
+            *edges,
         ],
         "top2": ("16384x16384x16", t(big1), t(big2), None),
         "table": ("4096x4096x16", t(big1[:4096]), t(big2[:4096]), None),
@@ -880,10 +923,40 @@ def _exact(case, got, ref, stats):
           f"entries (max abs err {stats['max_abs_err']:g})")
 
 
-def phase_hamming(frames, dev, smi):
+def _bits(d):
+    """(N, W) int32 words -> (N, 32 W) f32 0/1 bits."""
+    shifts = torch.arange(32, dtype=torch.int32, device=d.device)
+    return ((d[:, :, None] >> shifts) & 1).reshape(d.shape[0], -1).float()
+
+
+def _table_library(d1, d2, smi):
+    """Device ms of ``torch.cdist(a, b, p=0)`` on the banks unpacked to 0/1
+    f32 bits, the unpack outside the timed region: the one PyTorch call
+    that computes the Hamming table. None, with the reason, where it does
+    not run on the card."""
+    a, b = _bits(d1), _bits(d2)
+    try:
+        table = torch.cdist(a, b, p=0)
+        torch.cuda.synchronize()
+        ms = bench_problem.device_ms(lambda: torch.cdist(a, b, p=0))
+    except RuntimeError as e:
+        print(f"hamming: library call: none, torch.cdist(p=0) does not run on "
+              f"the card here: {str(e).splitlines()[0]}")
+        return None
+    same = torch.equal(table.to(torch.int32),
+                       hamming.hamming_distance_reference(d1, d2))
+    print(f"hamming: library call torch.cdist(p=0) on {a.shape[0]}x"
+          f"{b.shape[0]}x{a.shape[1]} bits: {ms:.4f} ms, device time, equal to "
+          f"the plain table: {same} | {smi}")
+    return ms
+
+
+def phase_hamming(frames, dev, smi, popc_rate):
     cases = _hamming_cases(frames, dev)
     out = {k: {"mismatches": 0, "max_abs_err": 0.0} for k in ("top2", "table")}
-    for name, d1, d2, m2 in cases["both"] + [cases["top2"]]:
+    big1, big2 = cases["top2"][1:3]
+    mid = ("2048x2048x16", big1[:2048], big2[:2048], None)
+    for name, d1, d2, m2 in cases["both"] + [mid, cases["top2"]]:
         got = hamming.hamming_top2(d1, d2, m2)
         ref = hamming.hamming_top2_reference(d1, d2, m2)
         torch.cuda.synchronize()
@@ -895,12 +968,13 @@ def phase_hamming(frames, dev, smi):
         _exact(f"table {name}", (got,), (ref,), out["table"])
     names = ", ".join(c[0] for c in cases["both"])
     print(f"hamming: top-2 and table kernels equal their plain versions "
-          f"exactly at {names}, top-2 {cases['top2'][0]}, table "
+          f"exactly at {names}, top-2 {mid[0]} and {cases['top2'][0]}, table "
           f"{cases['table'][0]}")
 
     frame = cases["both"][0][1:]
     timings = (
         ("top2", "frame 512x512x16", frame, 50, 50),
+        ("top2", mid[0], mid[1:], 20, 2),
         ("top2", cases["top2"][0], cases["top2"][1:], 5, 1),
         ("table", "frame 512x512x16", frame[:2], 50, 50),
         ("table", cases["table"][0], cases["table"][1:3], 10, 2),
@@ -912,17 +986,23 @@ def phase_hamming(frames, dev, smi):
         kern, plain = fns[which]
         ms = _time_calls(kern, [ops], reps)
         plain_ms = _time_calls(plain, [ops], plain_reps)
+        # bytes: both banks (and the mask) read once, the outputs written
+        # once; operations: one XOR + popcount per word pair, at the
+        # popcount issue rate
+        n1, w = ops[0].shape
+        n2 = ops[1].shape[0]
+        out_bytes = 3 * n1 * 4 if which == "top2" else n1 * n2 * 4
+        mask_bytes = n2 if len(ops) > 2 and ops[2] is not None else 0
+        bound_ms, bound_by = bound((n1 + n2) * w * 4 + mask_bytes + out_bytes,
+                                   n1 * n2 * w, popc_rate)
         if name.startswith("frame"):
-            out[which]["ms"], out[which]["plain_ms"] = ms, plain_ms
-            # bytes: both banks (and the mask) read once, the outputs
-            # written once; operations: xor, popcount and add per word pair
-            n1, w = ops[0].shape
-            n2 = ops[1].shape[0]
-            out_bytes = 3 * n1 * 4 if which == "top2" else n1 * n2 * 4
-            out[which]["bound_ms"], out[which]["bound_by"] = bound(
-                (n1 + n2) * w * 4 + n2 + out_bytes, 3 * n1 * n2 * w)
+            out[which].update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                              bound_by=bound_by)
         print(f"hamming: {which} {name}: {ms:.4f} ms (kernel) vs "
-              f"{plain_ms:.4f} ms (plain), device time | {smi}")
+              f"{plain_ms:.4f} ms (plain); bound {bound_ms:.4f} ms "
+              f"({bound_by}), device time | {smi}")
+    out["top2"]["library_ms"] = None  # no one PyTorch call computes a top-2
+    out["table"]["library_ms"] = _table_library(*frame[:2], smi)
     return out
 
 
@@ -1137,7 +1217,7 @@ def _kernel_entry(name, source, replaces, n_launches, stats):
 
 
 def main():
-    name, smi = phase_device()
+    name, smi, popc_rate = phase_device()
     phase_build()
     dev = torch.device("cuda:0")
     t0 = time.perf_counter()
@@ -1159,9 +1239,7 @@ def main():
           f"EuRoC frames have shape {frames.shape}")
     print(f"frames: {SEQUENCE_FRAMES} EuRoC cam0 frames (752x480, 400 "
           f"landmarks, seed 0) rendered in {time.perf_counter() - t0:.3f} s")
-    ham = phase_hamming(frames, dev, smi)
-    for k in ham.values():
-        k["library_ms"] = None  # no one PyTorch call computes a Hamming table
+    ham = phase_hamming(frames, dev, smi, popc_rate)
     table_launches = phase_pair(dev, smi)
     top2_launches = phase_sequence(frames, dev, smi)
     print(json.dumps({"kernels": [

@@ -13,6 +13,9 @@ Two generators, numpy only:
   the reference run at f64 (``jax_enable_x64``) the frames are bit-identical
   to its PNGs.
 
+:func:`top2_edge_cases` makes the top-2 inputs that the frames do not:
+ties across the kernel's column split, masks, ragged sizes.
+
 :func:`time_call` times a call until the device finished and a result was
 fetched, as ``bench_problem.bench_backend`` does; :func:`profile_sequence`
 reads the device's busy share over one ``track_sequence``.
@@ -172,6 +175,70 @@ def make_euroc_frames(params: EurocSimParams = EUROC_FRONTEND,
     )
     tex = landmark_textures(lm.shape[0], seed=seed + 101)
     return render_sequence(uv_frames, vis_frames, tex, p.width, p.height_px)
+
+
+def top2_edge_cases(seed: int = 4):
+    """Top-2 inputs that stress the kernel's split of each row's columns
+    over lanes and the merge of the lanes' results, as numpy arrays: a list
+    of ``(name, d1 (N1, W) uint32, d2 (N2, W) uint32, mask2 (N2,) bool or
+    None)``.
+
+    - a best tied at columns j and j + L (column j copied to j + L, the
+      query column j or it with one bit flipped; some columns j masked, so
+      that the copy is the best): L = 1 and 34 put the two in different
+      lanes of a 32-lane split, 34 with the larger column in the lower lane
+      at j = 30 and 31; L = 8, 16 and 32 in one lane of such splits;
+    - the only live column last; N2 = 1, 7, 33 and 100 (not a multiple of
+      32); every column masked;
+    - 1,500 query rows, and 4,500 and 2,200 (W = 16 and 32: several rows
+      per thread; fewer rows run 4 warps per row); W = 1 with many equal
+      distances.
+    """
+    rng = np.random.default_rng(seed)
+
+    def bank(n, w):
+        return rng.integers(0, 2**32, (n, w), dtype=np.uint64).astype(np.uint32)
+
+    cases = []
+    for L in (1, 8, 16, 32, 34):
+        d2 = bank(130, 16)
+        js = np.arange(0, 130 - L, 3)  # no j + L is another j
+        d2[js + L] = d2[js]
+        d1 = d2[js].copy()
+        d1[1::2, 0] ^= np.uint32(1)  # distance 1 at both columns
+        mask = np.ones(130, bool)
+        mask[js[1::4]] = False
+        cases.append((f"tie at j and j+{L}", d1, d2, mask))
+    one = np.zeros(100, bool)
+    one[-1] = True
+    cases.append(("only the last column live, N2=100", bank(40, 16),
+                  bank(100, 16), one))
+    for n2 in (1, 7, 33):
+        d2 = bank(n2, 16)
+        cases.append((f"N2={n2}", np.concatenate([d2, bank(37, 16)]), d2,
+                      None))
+    d2 = bank(100, 8)
+    d2[60:] = d2[:40]
+    cases.append(("N2=100 W=8 ties, mask",
+                  np.concatenate([d2[:30], bank(20, 8)]), d2,
+                  rng.random(100) < 0.6))
+    cases.append(("all masked", bank(33, 16), bank(70, 16), np.zeros(70, bool)))
+    d2 = bank(97, 16)
+    d2[50:] = d2[:47]
+    cases.append(("4,500 queries, ties, mask",
+                  np.concatenate([d2, bank(4403, 16)]), d2,
+                  rng.random(97) < 0.8))
+    d2 = bank(300, 16)
+    d2[200:] = d2[:100]
+    cases.append(("1,500 queries, ties", np.concatenate([d2, bank(1200, 16)]),
+                  d2, None))
+    d2 = bank(45, 32)
+    cases.append(("2,200 queries W=32, ties",
+                  np.concatenate([d2[:10], bank(2190, 32)]),
+                  np.concatenate([d2, d2]), None))
+    small = rng.integers(0, 4, (50, 1)).astype(np.uint32)
+    cases.append(("W=1 tie-heavy", small, np.tile(small, (3, 1)), None))
+    return cases
 
 
 def _sync(x):

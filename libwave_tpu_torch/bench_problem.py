@@ -200,6 +200,14 @@ def make_problem(num_poses=200, num_landmarks=10_000, obs_per_pose=300,
     return problem, state
 
 
+def ba_large_problem(num_landmarks=100_000, device=None):
+    """``bench.py``'s ``ba_large`` problem: :func:`make_problem` at 400
+    poses, ``num_landmarks`` landmarks (100,000 there), 1,500 observations
+    per pose (K = 600,000), seed 1."""
+    return make_problem(num_poses=400, num_landmarks=num_landmarks,
+                        obs_per_pose=1500, seed=1, device=device)
+
+
 def g_a_edge_cases(seed: int = 1):
     """G/A inputs the headline problem does not make, as numpy arrays:
     a list of ``(name, W (18, N, Pmax) f32, lm_slot (N, Pmax) int32,
@@ -240,6 +248,32 @@ def g_a_edge_cases(seed: int = 1):
         spanning)
     add("empty runs (ids in [0, 50) of M=500)", 6, 20, 500, 0, 50,
         [(0, 500, 0, 6), (40, 300, 2, 5)])
+    return cases
+
+
+def broadcast_edge_cases(seed: int = 7):
+    """Segment-broadcast inputs off the main path's shapes, as numpy arrays:
+    a list of ``(name, y (C, M) f64, ids (off + K,) int32, off)``; the
+    broadcast's ids are the view ``ids[off:]`` of a tensor of ``ids``, so
+    ``off = 1`` gives a contiguous view with a storage offset that is not
+    16-byte aligned. K in {1, 3, 4,096, 4,097} (rows of a (C, K) output off
+    16-byte boundaries where K % 4 != 0), C in {1, 3, 5, 6}, ids < 0 and
+    >= M = 300; and M = 22,000 at C = 6 (y 528 KB in f32, past the 384 KB
+    where the kernel walks one channel at a time)."""
+    rng = np.random.default_rng(seed)
+    cases = []
+
+    def add(C, K, M, off):
+        ids = rng.integers(-3, M + 3, off + K).astype(np.int32)
+        cases.append((f"C={C} K={K} M={M} offset {off}",
+                      rng.standard_normal((C, M)), ids, off))
+
+    for K in (1, 3, 4096, 4097):
+        for C in (1, 3, 5, 6):
+            for off in (0, 1):
+                add(C, K, 300, off)
+    for off in (0, 1):
+        add(6, 1001, 22_000, off)
     return cases
 
 

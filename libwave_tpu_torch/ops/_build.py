@@ -47,14 +47,17 @@ def _nvcc() -> str:
     raise NvccError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
-def build(name: str, sources: list[str]) -> tuple[Path, str]:
+def build(name: str, sources: list[str],
+          includes: tuple[str, ...] = ()) -> tuple[Path, str]:
     """Compile ``sources`` (file names under ``csrc``) into
-    ``_build/lib<name>-<hash>.so``. Returns the library's path and the
-    compiler's output (``-Xptxas -v``: registers, shared memory, spills);
-    an up-to-date library is reused and its saved output returned."""
+    ``_build/lib<name>-<hash>.so``. ``includes`` names the files under
+    ``csrc`` that the sources ``#include``: they enter the hash, so an edit
+    to one rebuilds. Returns the library's path and the compiler's output
+    (``-Xptxas -v``: registers, shared memory, spills); an up-to-date
+    library is reused and its saved output returned."""
     paths = [CSRC / s for s in sources]
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for p in paths:
+    for p in paths + [CSRC / s for s in includes]:
         digest.update(p.name.encode())
         digest.update(p.read_bytes())
     stem = f"lib{name}-{digest.hexdigest()[:16]}"
@@ -75,7 +78,8 @@ def build(name: str, sources: list[str]) -> tuple[Path, str]:
     return lib, out
 
 
-def load(name: str, sources: list[str]) -> tuple[ctypes.CDLL, str]:
+def load(name: str, sources: list[str],
+         includes: tuple[str, ...] = ()) -> tuple[ctypes.CDLL, str]:
     """:func:`build`, then load the library with ``ctypes``."""
-    lib, out = build(name, sources)
+    lib, out = build(name, sources, includes)
     return ctypes.CDLL(str(lib)), out

@@ -207,6 +207,52 @@ def test_hamming_kernels_match_plain(cuda_device, n1, n2, w, masked):
         assert (got[0] == hamming.BIG).all() and (got[2] == 0).all()
 
 
+TOP2_EDGES = bench_frontend.top2_edge_cases()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", range(len(TOP2_EDGES)),
+                         ids=[c[0] for c in TOP2_EDGES])
+def test_top2_kernel_edge_cases(cuda_device, case):
+    """Ties across and within the kernel's lanes, the only live column
+    last, ragged N2, all masked, the several-rows-per-thread launches: the
+    kernel equals its plain version exactly (the CPU tests hold the plain
+    version to the Pallas kernel on the same cases)."""
+    _, d1, d2, mask = TOP2_EDGES[case]
+    a, b = (torch.as_tensor(x.view(np.int32), device=cuda_device)
+            for x in (d1, d2))
+    m = None if mask is None else torch.as_tensor(mask, device=cuda_device)
+    before = hamming.hamming_top2.launches
+    got = hamming.hamming_top2(a, b, m)
+    assert hamming.hamming_top2.launches == before + 1
+    ref = hamming.hamming_top2_reference(a, b, m)
+    torch.cuda.synchronize()
+    for g, r in zip(got, ref):
+        assert torch.equal(g, r)
+
+
+@pytest.mark.cuda
+def test_top2_kernel_unaligned_banks(cuda_device):
+    """Banks that start 4 bytes past a 16-byte boundary (contiguous views
+    with a storage offset) take the kernel's 4-byte loads."""
+    rng = np.random.default_rng(5)
+
+    def unaligned(n):
+        flat = torch.zeros(n * 16 + 1, dtype=torch.int32, device=cuda_device)
+        view = flat[1:].view(n, 16)
+        view.copy_(_words(rng, cuda_device, n, 16))
+        return view
+
+    d1, d2 = unaligned(600), unaligned(300)
+    d1[:100] = d2[:100]
+    assert d1.data_ptr() % 16 and d2.data_ptr() % 16
+    got = hamming.hamming_top2(d1, d2)
+    ref = hamming.hamming_top2_reference(d1, d2)
+    torch.cuda.synchronize()
+    for g, r in zip(got, ref):
+        assert torch.equal(g, r)
+
+
 @pytest.mark.cuda
 def test_hamming_kernels_reject_what_they_do_not_take(cuda_device):
     rng = np.random.default_rng(1)
@@ -275,6 +321,27 @@ def test_segment_kernels_match_plain(cuda_device, C, K, M, dtype):
     assert torch.equal(got, segmm.seg_broadcast_reference(y, idx))
     ok = (idx >= 0) & (idx < M)
     assert not got[:, ~ok].any()
+
+
+BROADCAST_EDGES = bench_problem.broadcast_edge_cases()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("case", range(len(BROADCAST_EDGES)),
+                         ids=[c[0] for c in BROADCAST_EDGES])
+def test_broadcast_kernel_edge_cases(cuda_device, case, dtype):
+    """K % 4 != 0 and ids with a storage offset of 1 (the kernel's scalar
+    path), C = 1, 3, 5, 6, and a y past 384 KB (one channel at a time):
+    exact equality with the plain version."""
+    _, y, ids, off = BROADCAST_EDGES[case]
+    yt = torch.as_tensor(y, device=cuda_device).to(dtype)
+    idx = torch.as_tensor(ids, device=cuda_device)[off:]
+    before = segmm.seg_broadcast.launches
+    got = segmm.seg_broadcast(yt, idx)
+    assert segmm.seg_broadcast.launches == before + 1
+    torch.cuda.synchronize()
+    assert torch.equal(got, segmm.seg_broadcast_reference(yt, idx))
 
 
 @pytest.mark.cuda

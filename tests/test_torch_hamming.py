@@ -14,7 +14,7 @@ import torch
 
 from libwave_tpu.ops.hamming import hamming_distance_pallas
 from libwave_tpu.ops.hamming import hamming_top2 as jax_top2
-from libwave_tpu_torch import interop
+from libwave_tpu_torch import bench_frontend, interop
 from libwave_tpu_torch.ops import hamming
 
 
@@ -64,6 +64,26 @@ def test_top2_plain_equals_pallas(name, d1, d2, mask):
     if mask is not None and not mask.any():
         assert (got[0] == hamming.BIG).all() and (got[1] == hamming.BIG).all()
         assert (got[2] == 0).all()
+
+
+EDGES = bench_frontend.top2_edge_cases()
+
+
+@pytest.mark.parametrize("name,d1,d2,mask", EDGES, ids=[c[0] for c in EDGES])
+def test_top2_edge_cases_plain_equals_pallas(name, d1, d2, mask):
+    """The cases the card holds the kernel's lane split and merge to
+    (``tests/test_torch_cuda.py``, ``chip_smoke.py``): ties across and
+    within lanes, the only live column last, ragged N2, all masked."""
+    m = None if mask is None else jnp.asarray(mask)
+    ref = [np.asarray(x) for x in jax_top2(jnp.asarray(d1), jnp.asarray(d2), m)]
+    got = hamming.hamming_top2(interop.desc_from_numpy(d1, "cpu"),
+                               interop.desc_from_numpy(d2, "cpu"),
+                               None if mask is None else torch.as_tensor(mask))
+    for r, g in zip(ref, got):
+        np.testing.assert_array_equal(g.numpy(), r)
+    if name.startswith("tie"):
+        # the best is tied (second equals best) wherever column j is live
+        assert (ref[1] == ref[0]).sum() >= len(d1) // 2
 
 
 @pytest.mark.parametrize("name,d1,d2,mask", CASES, ids=[c[0] for c in CASES])

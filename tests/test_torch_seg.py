@@ -94,6 +94,25 @@ def test_broadcast_matches_pallas(case, rng):
     assert not got.numpy()[:, out].any()
 
 
+BROADCAST_EDGES = bench_problem.broadcast_edge_cases()
+
+
+@pytest.mark.parametrize("case", range(len(BROADCAST_EDGES)),
+                         ids=[c[0] for c in BROADCAST_EDGES])
+def test_broadcast_edge_cases_match_pallas(case):
+    """K not a multiple of 4 and an id view with a storage offset (the
+    kernel's scalar path on the card): the plain version equals the Pallas
+    kernel exactly."""
+    _, y, ids, off = BROADCAST_EDGES[case]
+    y = y.astype(np.float32)
+    ref = np.asarray(seg_broadcast_onehot(jnp.asarray(y),
+                                          jnp.asarray(ids[off:])))
+    idx = torch.as_tensor(ids)[off:]
+    assert idx.storage_offset() == off and idx.is_contiguous()
+    got = segmm.seg_broadcast(torch.as_tensor(y), idx)
+    np.testing.assert_array_equal(got.numpy(), ref)
+
+
 def test_sorted_reduce_matches_log_shift_scan(rng):
     """The layout's sorted reduce against the JAX package's ell_seg_reduce
     on a packed bank, with and without the padding slots in the runs."""
