@@ -10,9 +10,11 @@ it imports no JAX. Phases, each reported on its own line:
    ``nvidia-smi``), its SM count, the torch and CUDA versions; no CUDA
    device is a failure, never a CPU run;
 2. build: compiles ``libwave_tpu_torch/csrc/segmm_g_a.cu``,
-   ``libwave_tpu_torch/csrc/segmm_seg.cu`` and
-   ``libwave_tpu_torch/csrc/hamming.cu`` for sm_90a, one nvcc each, started
-   together, and loads them;
+   ``libwave_tpu_torch/csrc/segmm_seg.cu``,
+   ``libwave_tpu_torch/csrc/hamming.cu`` and
+   ``libwave_tpu_torch/csrc/table_designs.cu`` (the first table kernel and
+   the tensor-core rate probe) for sm_90a, one nvcc each, started together,
+   and loads them;
 3. kernel: the G/A kernel through its window entry point
    (``dense_g_a_window``: the full W, the landmark-sorted layout and Hinv,
    window bounds) at each band call of the headline problem's first
@@ -76,22 +78,42 @@ it imports no JAX. Phases, each reported on its own line:
    positions within 1 cm: at f32 the stiff IMU information drowns the
    vision terms' last digits, and the port's own f32 and f64 solves on the
    CPU end about 1 mm apart in ATE);
-8. hamming: both Hamming kernels against their plain versions on the card,
+8. euroc: ``bench.py``'s ``euroc`` configuration (an MH_01-like ASL
+   sequence of 16 s, 200 landmarks, seed 3, written by the port's
+   ``generate_euroc_sequence`` into a temporary directory;
+   ``EurocVIOParams()`` and ``default_vio_config``: 25 LM iterations, the
+   dense solver, f32) built and solved by the port on the card: 1 G/A, 3
+   reduce and 1 broadcast launches per LM iteration, no synchronizing call
+   inside ``solve_vio`` outside ``optim/schur.py``'s ``torch.linalg``
+   lines, a finite final cost below the initial, ATE below the dead-reckoned
+   start's and under 0.03 m (the JAX package's own bound,
+   ``tests/test_euroc_vio.py``), and the same build and solve on this
+   machine's CPU through the plain versions (final cost within rtol 1e-4,
+   keyframe positions within 1 mm: a quarter of the ATE; the two solves
+   have parted by 5.5e-6 in cost and 1.6e-4 m); keyframes, landmarks, ATE,
+   RPE, build seconds and solve keyframes/s;
+9. hamming: both Hamming kernels against their plain versions on the card,
    exactly equal (integer outputs), at the frame's 512 x 512 x 16, at an
    unaligned 300 x 700 x 8 with ties, mask zeros, an all-masked bank and a
    single live column, at ``bench_frontend.top2_edge_cases`` (ties across
    and within the top-2's lanes, the only live column last, N2 = 1, 7, 33,
    100, 1,500, 4,500 and 2,200 query rows), the top-2 at 2,048^2 x 16 and
-   16,384^2 x 16 and the table at 4,096^2 x 16; each timed against its
-   plain version as device
-   time, and the table against
-   ``torch.cdist(p=0)`` on the banks unpacked to 0/1 f32 bits;
-9. pair: ``bench.py``'s two-frame pair (480x640 blobs and their (4, 7) roll,
+   16,384^2 x 16; the table also at ``bench_frontend.table_edge_cases``
+   (W = 1, 2, 4, 8, 16, 32, N1 and N2 of 1, 7, 33, 100 and 4,097, a
+   2,048-row bank) and on banks 4 bytes past a 16-byte boundary. Then the
+   tensor cores' ``mma.sync`` rate on .b1 operands (and .s8), and each
+   kernel timed as device time against its plain version: the top-2 at
+   the frame, 2,048^2 and 16,384^2; the table at the frame, 4,096^2 and
+   8,192^2 x 16 beside the first table kernel (CUDA cores) and
+   ``torch.cdist(p=0)`` on the banks unpacked to 0/1 f32 bits, with two
+   bounds: the bytes, and the bit operations at the measured .b1 rate (the
+   first kernel's: the popcount issue rate);
+10. pair: ``bench.py``'s two-frame pair (480x640 blobs and their (4, 7) roll,
    FAST-512, BRISK, knn ratio + RANSAC) on the card: one top-2 launch per
    pair, pairs/s with the kernel and with the plain top-2; then the same pair
    through the distance heuristic with cross check, one table launch per
    pair, the same matches as with the plain table;
-10. sequence: the 25 EuRoC-resolution (752x480) frames of ``bench.py``'s
+11. sequence: the 25 EuRoC-resolution (752x480) frames of ``bench.py``'s
     front-end benchmark through ``track_sequence`` with ``FrontendParams()``:
     25 top-2 launches, tracks identical to the run with the plain top-2,
     contiguous tracks of mean length >= 3, rows and ids within 10% of the JAX
@@ -103,9 +125,11 @@ The line before the last is a JSON object describing each kernel (its
 launches on its main path, its largest difference from the plain version,
 its time, the plain version's and the library call's, and its bound: the
 larger of the bytes it must move over 3.35 TB/s and its operations over
-67 TFLOP/s, the H100 SXM's HBM rate and non-tensor f32 rate; the Hamming
-kernels' XOR + popcount word operations over the popcount issue rate, 16
-per SM per clock at this card's SM count and maximum SM clock); the last
+67 TFLOP/s, the H100 SXM's HBM rate and non-tensor f32 rate; the top-2's
+XOR + popcount word operations over the popcount issue rate, 16 per SM per
+clock at this card's SM count and maximum SM clock; the table's bit
+operations, an AND and an add per bit pair, over the .b1 rate measured in
+this run); the last
 line is ``{"ok": true, "device": {...}}``. Any failed phase raises and the
 script exits non-zero without that line.
 """
@@ -120,6 +144,7 @@ import inspect
 import json
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 from pathlib import Path
@@ -129,12 +154,13 @@ import numpy as np
 import torch
 
 import libwave_tpu_torch
-from libwave_tpu_torch import bench_frontend, bench_problem
+from libwave_tpu_torch import bench_designs, bench_frontend, bench_problem
 from libwave_tpu_torch.ops import hamming, segmm
 from libwave_tpu_torch.benchmark import Trajectory, absolute_trajectory_error
 from libwave_tpu_torch.geometry.se3 import SE3
 from libwave_tpu_torch.optim import ba, schur
-from libwave_tpu_torch.pipelines import vio, visual_frontend
+from libwave_tpu_torch.pipelines import euroc_vio, vio, visual_frontend
+from libwave_tpu_torch.sim import euroc_sim
 from libwave_tpu_torch.utils import precision
 from libwave_tpu_torch.vision import matcher
 from libwave_tpu_torch.vision.descriptor import brisk_describe
@@ -145,6 +171,7 @@ HERE = Path(__file__).resolve().parent
 KERNEL_SOURCE = "libwave_tpu_torch/csrc/segmm_g_a.cu"
 KERNEL_REPLACES = "libwave_tpu/ops/segmm.py:190"
 HAMMING_SOURCE = "libwave_tpu_torch/csrc/hamming.cu"
+TABLE_DESIGNS_SOURCE = "libwave_tpu_torch/csrc/table_designs.cu"
 TOP2_REPLACES = "libwave_tpu/ops/hamming.py:103"
 TABLE_REPLACES = "libwave_tpu/ops/hamming.py:27"
 SEG_SOURCE = "libwave_tpu_torch/csrc/segmm_seg.cu"
@@ -172,6 +199,10 @@ REL_TOL = 1e-6
 JAX_TRACK_ROWS = 1435
 JAX_TRACK_IDS = 373
 SEQUENCE_FRAMES = 25
+# bench.py's euroc phase (bench_euroc): the sequence and its seed
+EUROC_SIM = euroc_sim.EurocSimParams(duration=16.0, nb_landmarks=200)
+EUROC_SEED = 3
+EUROC_ATE_BOUND_M = 0.03  # the JAX package's bound, tests/test_euroc_vio.py
 
 
 class SmokeFailure(RuntimeError):
@@ -250,7 +281,9 @@ def _timed_build(build):
 def phase_build():
     """One nvcc per source, all started together."""
     builds = ((KERNEL_SOURCE, segmm.build), (SEG_SOURCE, segmm.build_seg),
-              (HAMMING_SOURCE, hamming.build))
+              (HAMMING_SOURCE, hamming.build),
+              (TABLE_DESIGNS_SOURCE,
+               lambda: bench_designs.table_library()[1]))
     with concurrent.futures.ThreadPoolExecutor(len(builds)) as pool:
         futures = [pool.submit(_timed_build, b) for _, b in builds]
         results = [f.result() for f in futures]
@@ -795,6 +828,16 @@ def _ate(gt, est):
     return float(absolute_trajectory_error(truth, traj)[0])
 
 
+def _schur_linalg_sites():
+    """file:line of every ``torch.linalg`` call in ``optim/schur.py``: the
+    dense solves' factorizations, the only synchronizing calls a VIO solve
+    may make."""
+    src = Path(inspect.getsourcefile(schur))
+    return {f"{src}:{i}" for i, line in
+            enumerate(src.read_text().splitlines(), 1)
+            if "torch.linalg." in line}
+
+
 def phase_vio(dev, smi):
     problem, gt, init = bench_problem.make_vio_problem(device=dev)
     N, M = gt.q.shape[0], gt.lm.shape[0]
@@ -808,10 +851,7 @@ def phase_vio(dev, smi):
           f"landmarks, {K} observation slots (K % 4 = {K % 4}: the broadcast "
           f"takes its {'16-byte' if aligned else 'scalar'} path), f32; ATE "
           f"of the start {ate0:.6f} m")
-    src = Path(inspect.getsourcefile(schur))
-    linalg_sites = {f"{src}:{i}" for i, line in
-                    enumerate(src.read_text().splitlines(), 1)
-                    if "torch.linalg." in line}
+    linalg_sites = _schur_linalg_sites()
     # per LM iteration, dense: reduces of Hll, bl and back-substitution,
     # schur_rhs's broadcast, one G/A build; PCG: as the matrix-free BA
     # path, with cg_max_iters matvecs
@@ -866,6 +906,96 @@ def phase_vio(dev, smi):
     return out
 
 
+def _euroc_build(root, params, device):
+    """``build_euroc_vio_problem`` on ``device`` (f32) and its seconds, the
+    device synchronized."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    built = euroc_vio.build_euroc_vio_problem(root, params, device=device)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    return built, time.perf_counter() - t0
+
+
+def phase_euroc(dev, smi):
+    params = euroc_vio.EurocVIOParams()
+    cfg = euroc_vio.default_vio_config(params)
+    it = cfg.max_iterations
+    with tempfile.TemporaryDirectory(prefix="euroc_") as root:
+        t0 = time.perf_counter()
+        euroc_sim.generate_euroc_sequence(root, EUROC_SIM, seed=EUROC_SEED,
+                                          device=dev)
+        gen_s = time.perf_counter() - t0
+        (problem, init, gt_traj, kf_times), build_s = _euroc_build(
+            root, params, dev)
+        N, M = init.q.shape[0], init.lm.shape[0]
+        check(init.q.dtype == torch.float32 and kf_times.dtype ==
+              torch.float64, "euroc: the problem is not f32 or the times "
+              "are not f64")
+        # per LM iteration on the dense path (N * 15 <= dense_max_pose_dim
+        # and M <= dense_max_landmarks): one G/A build, the reduces of Hll,
+        # bl and back-substitution, schur_rhs's broadcast
+        want = dict(segmm_g_a=it, seg_reduce=3 * it, seg_broadcast=it,
+                    hamming_top2=0, hamming_table=0)
+        reset_launches()
+        (state, info), syncs = _sync_free(
+            lambda: vio.solve_vio(problem, init, cfg))
+        counts = launch_counts()
+        check(counts == want, f"euroc: launches {counts} in {it} LM "
+              f"iterations, expected {want}")
+        stray = sorted(set(syncs) - _schur_linalg_sites())
+        check(not stray, f"euroc: synchronizing calls inside solve_vio "
+              f"outside torch.linalg: {stray}")
+        rep = euroc_vio.euroc_report(gt_traj, kf_times, init, state, info)
+        c0, cost = rep["initial_cost"], rep["final_cost"]
+        ate, ate0 = rep["ate_rmse"], rep["ate_rmse_deadreckon"]
+        check(np.isfinite(cost) and cost < c0,
+              f"euroc: cost {c0} -> {cost}")
+        check(ate < ate0 and ate < EUROC_ATE_BOUND_M,
+              f"euroc: ATE {ate} m (dead reckoning {ate0} m, bound "
+              f"{EUROC_ATE_BOUND_M} m)")
+        cpu = torch.device("cpu")
+        (problem_c, init_c, gt_c, kf_c), build_cpu_s = _euroc_build(
+            root, params, cpu)
+        est_c, info_c = vio.solve_vio(problem_c, init_c, cfg)
+        rep_c = euroc_vio.euroc_report(gt_c, kf_c, init_c, est_c, info_c)
+        dp = float((state.p.cpu() - est_c.p).abs().max())
+        check(abs(cost - rep_c["final_cost"]) <= 1e-4 * abs(rep_c["final_cost"])
+              and dp <= 1e-3, f"euroc: card final cost {cost} vs CPU "
+              f"{rep_c['final_cost']}, keyframe positions differ by {dp} m")
+        times = []
+        for _ in range(2):
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            _, info_t = vio.solve_vio(problem, init, cfg)
+            float(info_t["final_cost"])
+            times.append(time.perf_counter() - t0)
+    listed = ", ".join(f"{Path(k).name}:{k.rsplit(':', 1)[1]} x{v}"
+                       for k, v in sorted(syncs.items())) or "none"
+    print(f"euroc: bench.py's euroc sequence (16 s, 200 Hz IMU, 5 Hz camera, "
+          f"200 landmarks, seed {EUROC_SEED}) written by the port in "
+          f"{gen_s:.3f} s; {N} keyframes, {M} landmarks, "
+          f"{int((problem.obs_weight > 0).sum())} live observations; built "
+          f"in {build_s:.3f} s on the card ({build_cpu_s:.3f} s on the CPU), "
+          f"f32 | {smi}")
+    print(f"euroc: {counts['segmm_g_a']} G/A, {counts['seg_reduce']} reduce "
+          f"and {counts['seg_broadcast']} broadcast launches in {it} LM "
+          f"iterations (dense path, as worked out from the code); "
+          f"synchronizing calls: {listed}; cost {c0:.6e} -> {cost:.6e} (CPU, "
+          f"plain versions: {rep_c['final_cost']:.6e}, relative difference "
+          f"{abs(cost / rep_c['final_cost'] - 1):.3e} (rtol 1e-4), ATE "
+          f"{rep_c['ate_rmse']:.6f} m; keyframe positions within {dp:.3e} m, "
+          f"bound 1e-3 m)")
+    print(f"euroc: ATE {ate:.6f} m (dead reckoning {ate0:.6f} m, bound "
+          f"{EUROC_ATE_BOUND_M} m), RPE {rep['rpe_trans_rmse']:.6f} m "
+          f"{rep['rpe_rot_rmse']:.6f} rad; solve "
+          f"{N / np.median(times):.3f} keyframes/s (runs "
+          f"{', '.join(f'{N / t:.3f}' for t in times)}), build + solve "
+          f"{N / (build_s + np.median(times)):.3f} keyframes/s | {smi}")
+    return counts
+
+
 def _frame_bank(frame, dev, params=FASTParams(threshold=20.0, num_features=512)):
     img = torch.as_tensor(frame, device=dev).to(torch.float32)
     xy, _, m = detect_fast(img, params)
@@ -908,7 +1038,6 @@ def _hamming_cases(frames, dev):
             *edges,
         ],
         "top2": ("16384x16384x16", t(big1), t(big2), None),
-        "table": ("4096x4096x16", t(big1[:4096]), t(big2[:4096]), None),
     }
 
 
@@ -929,26 +1058,32 @@ def _bits(d):
     return ((d[:, :, None] >> shifts) & 1).reshape(d.shape[0], -1).float()
 
 
-def _table_library(d1, d2, smi):
+def _table_library(d1, d2, reps):
     """Device ms of ``torch.cdist(a, b, p=0)`` on the banks unpacked to 0/1
     f32 bits, the unpack outside the timed region: the one PyTorch call
-    that computes the Hamming table. None, with the reason, where it does
-    not run on the card."""
+    that computes the Hamming table; and whether it equals the plain table.
+    (None, None), with the reason printed, where it does not run on the
+    card."""
     a, b = _bits(d1), _bits(d2)
     try:
         table = torch.cdist(a, b, p=0)
         torch.cuda.synchronize()
-        ms = bench_problem.device_ms(lambda: torch.cdist(a, b, p=0))
+        ms = bench_problem.device_ms(lambda: torch.cdist(a, b, p=0), reps)
     except RuntimeError as e:
         print(f"hamming: library call: none, torch.cdist(p=0) does not run on "
               f"the card here: {str(e).splitlines()[0]}")
-        return None
+        return None, None
     same = torch.equal(table.to(torch.int32),
                        hamming.hamming_distance_reference(d1, d2))
-    print(f"hamming: library call torch.cdist(p=0) on {a.shape[0]}x"
-          f"{b.shape[0]}x{a.shape[1]} bits: {ms:.4f} ms, device time, equal to "
-          f"the plain table: {same} | {smi}")
-    return ms
+    return ms, same
+
+
+def _unaligned(d, dev):
+    """A contiguous copy of ``d`` 4 bytes past a 16-byte boundary."""
+    flat = torch.zeros(d.numel() + 1, dtype=d.dtype, device=dev)
+    view = flat[1:].view(d.shape)
+    view.copy_(d)
+    return view
 
 
 def phase_hamming(frames, dev, smi, popc_rate):
@@ -961,48 +1096,92 @@ def phase_hamming(frames, dev, smi, popc_rate):
         ref = hamming.hamming_top2_reference(d1, d2, m2)
         torch.cuda.synchronize()
         _exact(f"top-2 {name}", got, ref, out["top2"])
-    for name, d1, d2, m2 in cases["both"] + [cases["table"]]:
+    table_edges = [(name, *(torch.as_tensor(x.view(np.int32), device=dev)
+                            for x in banks), None)
+                   for name, *banks in bench_frontend.table_edge_cases()]
+    d_unaligned = _unaligned(big2[:600], dev)
+    check(d_unaligned.data_ptr() % 16 != 0, "hamming: the unaligned bank is "
+          "16-byte aligned")
+    tables = [(f"{n}x{n}x16", big1[:n], big2[:n], None) for n in (4096, 8192)]
+    for name, d1, d2, m2 in (cases["both"] + table_edges + tables + [
+            ("600x600x16 banks 4 bytes past a 16-byte boundary",
+             d_unaligned, d_unaligned, None)]):
         got = hamming.hamming_distance(d1, d2)
         ref = hamming.hamming_distance_reference(d1, d2)
         torch.cuda.synchronize()
         _exact(f"table {name}", (got,), (ref,), out["table"])
-    names = ", ".join(c[0] for c in cases["both"])
+        del got, ref
     print(f"hamming: top-2 and table kernels equal their plain versions "
-          f"exactly at {names}, top-2 {mid[0]} and {cases['top2'][0]}, table "
-          f"{cases['table'][0]}")
+          f"exactly at {', '.join(c[0] for c in cases['both'])}; the top-2 "
+          f"also at {mid[0]} and {cases['top2'][0]}; the table also at "
+          f"{', '.join(c[0] for c in table_edges + tables)} and on banks 4 "
+          f"bytes past a 16-byte boundary")
+
+    rates = bench_designs.mma_rates(dev)
+    b1_rate = rates["b1"]
+    print("hamming: mma.sync on register operands, 8 blocks of 8 warps per "
+          "SM, device time: " + ", ".join(
+              f"{k} {v:.4e} operations/s" for k, v in rates.items())
+          + f" | {smi}")
 
     frame = cases["both"][0][1:]
-    timings = (
-        ("top2", "frame 512x512x16", frame, 50, 50),
-        ("top2", mid[0], mid[1:], 20, 2),
-        ("top2", cases["top2"][0], cases["top2"][1:], 5, 1),
-        ("table", "frame 512x512x16", frame[:2], 50, 50),
-        ("table", cases["table"][0], cases["table"][1:3], 10, 2),
-    )
-    fns = {"top2": (hamming.hamming_top2, hamming.hamming_top2_reference),
-           "table": (hamming.hamming_distance,
-                     hamming.hamming_distance_reference)}
-    for which, name, ops, reps, plain_reps in timings:
-        kern, plain = fns[which]
-        ms = _time_calls(kern, [ops], reps)
-        plain_ms = _time_calls(plain, [ops], plain_reps)
-        # bytes: both banks (and the mask) read once, the outputs written
-        # once; operations: one XOR + popcount per word pair, at the
-        # popcount issue rate
+    for name, ops, reps, plain_reps in (
+            ("frame 512x512x16", frame, 50, 50),
+            (mid[0], mid[1:], 20, 2),
+            (cases["top2"][0], cases["top2"][1:], 5, 1)):
+        ms = _time_calls(hamming.hamming_top2, [ops], reps)
+        plain_ms = _time_calls(hamming.hamming_top2_reference, [ops],
+                               plain_reps)
+        # bytes: both banks and the mask read once, three int32 outputs
+        # written once; operations: one XOR + popcount per word pair, at
+        # the popcount issue rate
         n1, w = ops[0].shape
         n2 = ops[1].shape[0]
-        out_bytes = 3 * n1 * 4 if which == "top2" else n1 * n2 * 4
-        mask_bytes = n2 if len(ops) > 2 and ops[2] is not None else 0
-        bound_ms, bound_by = bound((n1 + n2) * w * 4 + mask_bytes + out_bytes,
+        mask_bytes = n2 if ops[2] is not None else 0
+        bound_ms, bound_by = bound((n1 + n2) * w * 4 + mask_bytes + 3 * n1 * 4,
                                    n1 * n2 * w, popc_rate)
         if name.startswith("frame"):
-            out[which].update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                              bound_by=bound_by)
-        print(f"hamming: {which} {name}: {ms:.4f} ms (kernel) vs "
+            out["top2"].update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                               bound_by=bound_by)
+        print(f"hamming: top2 {name}: {ms:.4f} ms (kernel) vs "
               f"{plain_ms:.4f} ms (plain); bound {bound_ms:.4f} ms "
               f"({bound_by}), device time | {smi}")
     out["top2"]["library_ms"] = None  # no one PyTorch call computes a top-2
-    out["table"]["library_ms"] = _table_library(*frame[:2], smi)
+
+    for name, (d1, d2), reps, plain_reps in (
+            ("frame 512x512x16", frame[:2], 50, 50),
+            (tables[0][0], tables[0][1:3], 10, 2),
+            (tables[1][0], tables[1][1:3], 5, 1)):
+        ms = _time_calls(hamming.hamming_distance, [(d1, d2)], reps)
+        first_ms = _time_calls(lambda a, b: bench_designs.table_design(0, a, b),
+                               [(d1, d2)], reps)
+        plain_ms = _time_calls(hamming.hamming_distance_reference, [(d1, d2)],
+                               plain_reps)
+        lib_ms, lib_same = _table_library(d1, d2, plain_reps)
+        # bytes: both banks read once, the int32 table written once;
+        # operations: an AND and an add per bit pair, at the .b1 rate
+        # measured above (the first kernel's: one XOR + popcount per word
+        # pair at the popcount issue rate)
+        n1, w = d1.shape
+        n2 = d2.shape[0]
+        bytes_ms, _ = bound((n1 + n2) * w * 4 + n1 * n2 * 4)
+        ops_ms = 2 * n1 * n2 * 32 * w / b1_rate * 1e3
+        popc_ms = n1 * n2 * w / popc_rate * 1e3
+        bound_ms, bound_by = ((bytes_ms, "bytes") if bytes_ms >= ops_ms
+                              else (ops_ms, "operations"))
+        if name.startswith("frame"):
+            out["table"].update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                                bound_by=bound_by, library_ms=lib_ms)
+        lib = ("none" if lib_ms is None else
+               f"{lib_ms:.4f} ms (torch.cdist(p=0) on 0/1 f32 bits, equal to "
+               f"the plain table: {lib_same})")
+        print(f"hamming: table {name}: {ms:.4f} ms (kernel) vs {first_ms:.4f} "
+              f"ms (first kernel, CUDA cores) vs {plain_ms:.4f} ms (plain) vs "
+              f"{lib} (library); bounds {bytes_ms:.6f} ms (bytes), "
+              f"{ops_ms:.6f} ms (bit operations at the .b1 rate), "
+              f"{popc_ms:.6f} ms (word operations at the popcount rate); "
+              f"{n1 * n2 * 4 / ms / 1e9:.3f} TB/s of table written; device "
+              f"time | {smi}")
     return out
 
 
@@ -1233,6 +1412,7 @@ def main():
     mf_counts = phase_matrix_free(problem, state, smi)
     del problem, state
     phase_vio(dev, smi)
+    phase_euroc(dev, smi)
     t0 = time.perf_counter()
     frames = bench_frontend.make_euroc_frames()
     check(frames.shape == (SEQUENCE_FRAMES, 480, 752),

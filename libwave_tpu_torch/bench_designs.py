@@ -1,13 +1,24 @@
-"""Time the shipped Hamming top-2 and segment broadcast against other designs
-of them on the card.
+"""Time the shipped Hamming top-2, Hamming table and segment broadcast
+against other designs of them on the card.
 
-    python3 libwave_tpu_torch/bench_designs.py
+    python3 libwave_tpu_torch/bench_designs.py [table] [top2] [broadcast]
 
-builds ``csrc/top2_broadcast_designs.cu`` (which includes the shipped
+(all three parts without arguments) builds ``csrc/table_designs.cu`` and
+``csrc/top2_broadcast_designs.cu`` (which include the shipped
 ``csrc/hamming.cu`` and ``csrc/segmm_seg.cu``) and prints, for each shape,
 the device ms of one call of each design, read twice
 (``bench_problem.device_ms``: a replayed CUDA graph), after checking that
 each equals the plain version exactly:
+
+- the table (W = 16) at 512 x 512 (the frame's shape), 4,096^2 and
+  8,192^2: the shipped tensor-core kernel (``hamming_distance``, 64 x 64
+  tiles), the first version's 32 x 32 tiles on the CUDA cores, a
+  register-tiled CUDA-core kernel (4 x 4 outputs a thread), the shipped
+  kernel at 128 x 128 tiles, the shipped launch through the designs'
+  library, an empty kernel over the shipped grid; first the shipped kernel
+  is held to the plain version at every W it takes and at ragged N1 and N2
+  (``bench_frontend.table_edge_cases``), and the tensor cores' rate on
+  ``mma.sync`` with .b1 and .s8 operands is measured (:func:`mma_rates`);
 
 - the top-2 (W = 16) at 512 x 512 (the frame's shape, a tenth of the
   columns masked), 2,048^2 and 16,384^2 (random banks of near copies): the
@@ -36,6 +47,7 @@ Needs a CUDA device and ``nvcc``.
 from __future__ import annotations
 
 import ctypes
+import functools
 import subprocess
 import sys
 from pathlib import Path
@@ -63,6 +75,73 @@ BROADCAST = [("first version, thread per (channel, slot)", 0),
              ("empty kernel", 7)]
 
 
+# (label, design) of csrc/table_designs.cu's table_design_w16
+TABLE = [("first version, 32 x 32 tiles on the CUDA cores", 0),
+         ("register-tiled CUDA cores, 4 x 4 a thread", 1),
+         ("shipped kernel at 128 x 128 tiles", 2),
+         ("shipped launch, 64 x 64 tiles", 3),
+         ("empty kernel", 4)]
+# operations counted per mma.sync instruction of csrc/table_designs.cu's
+# mma_rate: m16n8k256 .b1 AND + add per bit pair; m16n8k32 .s8 multiply-add
+MMA_OPS = {"b1": 2 * 16 * 8 * 256, "s8": 2 * 16 * 8 * 32}
+
+
+@functools.cache
+def table_library():
+    """Build (or reuse) and load ``csrc/table_designs.cu``; returns the
+    library and the compiler's ``-Xptxas -v`` report."""
+    from libwave_tpu_torch.ops import _build
+
+    lib, log = _build.load("table_designs", ["table_designs.cu"],
+                           includes=("hamming.cu",))
+    lib.table_design_w16.argtypes = [ctypes.c_int] + [
+        ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+    lib.table_design_w16.restype = ctypes.c_int
+    lib.mma_rate.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2
+    lib.mma_rate.restype = ctypes.c_int
+    return lib, log
+
+
+def table_design(design, d1, d2):
+    """One launch of ``table_design_w16``'s ``design`` on int32 (N, 16)
+    banks; returns the (N1, N2) int32 table."""
+    import torch
+
+    lib, _ = table_library()
+    out = torch.empty((d1.shape[0], d2.shape[0]), dtype=torch.int32,
+                      device=d1.device)
+    err = lib.table_design_w16(design, d1.data_ptr(), d2.data_ptr(),
+                               out.data_ptr(), d1.shape[0], d2.shape[0],
+                               torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"table design {design}: CUDA error {err}")
+    return out
+
+
+def mma_rates(dev, iters=1000, reps=3):
+    """Operations per second of ``mma.sync`` on the card, by operand type
+    (``MMA_OPS``): 8 blocks of 8 warps per SM, each warp ``iters`` steps of
+    8 independent products on register operands, timed as device time."""
+    import torch
+
+    from libwave_tpu_torch import bench_problem
+
+    lib, _ = table_library()
+    blocks = 8 * torch.cuda.get_device_properties(dev).multi_processor_count
+    sink = torch.empty(blocks * 256, dtype=torch.int32, device=dev)
+    rates = {}
+    for op, (name, per) in enumerate(MMA_OPS.items()):
+        def call(op=op):
+            err = lib.mma_rate(op, blocks, iters, sink.data_ptr(),
+                               torch.cuda.current_stream().cuda_stream)
+            if err:
+                raise RuntimeError(f"mma_rate {name}: CUDA error {err}")
+
+        ms = bench_problem.device_ms(call, reps)
+        rates[name] = blocks * 8 * iters * 8 * per / (ms * 1e-3)
+    return rates
+
+
 def _library():
     from libwave_tpu_torch.ops import _build
 
@@ -76,6 +155,21 @@ def _library():
         ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
     lib.broadcast_design_f32.restype = ctypes.c_int
     return lib
+
+
+def table_cases(dev):
+    """(name, d1, d2) int32 banks of W = 16 at the timed shapes."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(2)
+    words = rng.integers(0, 2**32, (8192, 16), dtype=np.uint64)
+    words = torch.as_tensor(words.astype(np.uint32).view(np.int32),
+                            device=dev)
+    near = words.flip(0).contiguous()
+    return [("512x512x16", near[:512], words[:512]),
+            ("4096x4096x16", near[:4096], words[:4096]),
+            ("8192x8192x16", near, words)]
 
 
 def top2_cases(dev):
@@ -117,9 +211,10 @@ def broadcast_cases(dev):
 
 
 def main():
+    import numpy as np
     import torch
 
-    from libwave_tpu_torch import bench_problem
+    from libwave_tpu_torch import bench_frontend, bench_problem
     from libwave_tpu_torch.ops import hamming, segmm
 
     if not torch.cuda.is_available():
@@ -128,8 +223,8 @@ def main():
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip().splitlines()[0]
-    lib = _library()
     dev = torch.device("cuda")
+    parts = sys.argv[1:] or ["table", "top2", "broadcast"]
 
     def stream():
         return torch.cuda.current_stream().cuda_stream
@@ -138,7 +233,51 @@ def main():
         return ", ".join(f"{bench_problem.device_ms(fn, reps):.4f}"
                          for _ in range(2))
 
-    for name, d1, d2, mask in top2_cases(dev):
+    if "table" in parts:
+        _, log = table_library()
+        for line in log.splitlines():
+            if "table" in line or "mma" in line or "registers" in line:
+                print(f"table designs: ptxas: {line.strip()}")
+        cases = [(name, *(torch.as_tensor(x.view(np.int32), device=dev)
+                          for x in banks))
+                 for name, *banks in bench_frontend.table_edge_cases()]
+        for name, d1, d2 in cases:
+            got = hamming.hamming_distance(d1, d2)
+            ref = hamming.hamming_distance_reference(d1, d2)
+            torch.cuda.synchronize()
+            if not torch.equal(got, ref):
+                raise SystemExit(f"table {name}: the shipped kernel differs "
+                                 f"from the plain version at "
+                                 f"{int((got != ref).sum())} entries")
+        print(f"table designs: the shipped kernel equals the plain version "
+              f"exactly at {len(cases)} cases: "
+              f"{', '.join(c[0] for c in cases)}", flush=True)
+        rates = mma_rates(dev)
+        print("table designs: mma.sync rates on register operands: "
+              + ", ".join(f"{k} {v:.4e} ops/s" for k, v in rates.items())
+              + f" | {smi}", flush=True)
+        for name, d1, d2 in table_cases(dev):
+            reps = 20 if d1.shape[0] <= 512 else 5
+            ref = hamming.hamming_distance_reference(d1, d2)
+            times = [f"shipped "
+                     f"{twice(lambda: hamming.hamming_distance(d1, d2), reps)}"]
+            for label, design in TABLE:
+                out = table_design(design, d1, d2)
+                torch.cuda.synchronize()
+                if label != "empty kernel" and not torch.equal(out, ref):
+                    raise SystemExit(f"{name}: table design '{label}' "
+                                     f"differs from the plain version")
+                t = twice(lambda design=design: table_design(design, d1, d2),
+                          reps)
+                times.append(f"{label} {t}")
+            print(f"table designs: {name}: device ms {'; '.join(times)} | "
+                  f"{smi}", flush=True)
+            del ref
+
+    if "top2" not in parts and "broadcast" not in parts:
+        return
+    lib = _library()
+    for name, d1, d2, mask in top2_cases(dev) if "top2" in parts else []:
         n1, n2 = d1.shape[0], d2.shape[0]
         reps = 20 if n1 <= 2048 else 3
         ref = hamming.hamming_top2_reference(d1, d2, mask)
@@ -168,7 +307,8 @@ def main():
               flush=True)
 
     gen = torch.Generator(device=dev).manual_seed(6)
-    for name, C, idx, M in broadcast_cases(dev):
+    for name, C, idx, M in (broadcast_cases(dev) if "broadcast" in parts
+                            else []):
         K = idx.shape[0]
         y = torch.randn((C, M), generator=gen, device=dev)
         ref = segmm.seg_broadcast_reference(y, idx)

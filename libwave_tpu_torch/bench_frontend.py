@@ -6,15 +6,15 @@ Two generators, numpy only:
   blob texture of the two-frame pair benchmark (the second frame is its
   ``np.roll(img, (4, 7), axis=(0, 1))``);
 - :func:`make_euroc_frames`: the cam0 frames that
-  ``libwave_tpu.sim.generate_euroc_sequence`` renders into PNGs, rebuilt from
-  the same trajectory, landmarks, camera mount, projection and renderer. The
-  quaternion products and rotation matrices go through this package's
-  ``geometry.so3`` at f64 on the CPU, the formulas of the reference's. With
-  the reference run at f64 (``jax_enable_x64``) the frames are bit-identical
-  to its PNGs.
+  ``generate_euroc_sequence`` renders into PNGs
+  (``sim.euroc_sim.cam0_frames``), without writing them.
+  With the JAX package run at f64 (``jax_enable_x64``) the frames are
+  bit-identical to its PNGs.
 
 :func:`top2_edge_cases` makes the top-2 inputs that the frames do not:
-ties across the kernel's column split, masks, ragged sizes.
+ties across the kernel's column split, masks, ragged sizes;
+:func:`table_edge_cases` the table's: every descriptor width, ragged
+sizes.
 
 :func:`time_call` times a call until the device finished and a result was
 fetched, as ``bench_problem.bench_backend`` does; :func:`profile_sequence`
@@ -23,15 +23,12 @@ reads the device's busy share over one ``track_sequence``.
 
 from __future__ import annotations
 
-import dataclasses
 import time
 
 import numpy as np
 import torch
 
-from libwave_tpu_torch.bench_problem import _q_bc_np
-from libwave_tpu_torch.geometry import so3
-from libwave_tpu_torch.sim.render import landmark_textures, render_sequence
+from libwave_tpu_torch.sim.euroc_sim import EurocSimParams, cam0_frames
 
 
 def blob_image(rng, H=480, W=640, n_blobs=250):
@@ -54,127 +51,15 @@ def pair_images(seed: int = 0):
     return img1, np.roll(img1, (4, 7), axis=(0, 1))
 
 
-@dataclasses.dataclass(frozen=True)
-class EurocSimParams:
-    """The fields of ``libwave_tpu.sim.EurocSimParams`` that shape the cam0
-    frames, with the same defaults (the IMU and track-noise fields do not
-    reach the images)."""
-
-    duration: float = 16.0  # seconds
-    imu_hz: float = 200.0
-    cam_hz: float = 5.0
-    amp: tuple = (3.0, 2.0, 0.5)
-    freq: tuple = (0.12, 0.17, 0.23)  # Hz per axis
-    height: float = 1.5
-    nb_landmarks: int = 200
-    box: tuple = (12.0, 10.0, 5.0)
-    fx: float = 458.654  # EuRoC cam0 intrinsics
-    fy: float = 457.296
-    cx: float = 367.215
-    cy: float = 248.375
-    width: int = 752
-    height_px: int = 480
-
-
 # bench.py's bench_frontend_batched sequence: EuRoC cam0 752x480, 25 frames
 EUROC_FRONTEND = EurocSimParams(duration=4.8, cam_hz=5.0, nb_landmarks=400)
-
-
-def _qmul(a: np.ndarray, b: np.ndarray) -> np.ndarray:
-    return so3.quat_multiply(torch.from_numpy(a), torch.from_numpy(b)).numpy()
-
-
-def _trajectory(p: EurocSimParams, t):
-    """Lissajous MAV path with yaw along the velocity
-    (``euroc_sim.py:58``): (q (n, 4), pos (n, 3))."""
-    ax, ay, az = p.amp
-    fx_, fy_, fz_ = [2 * np.pi * f for f in p.freq]
-    pos = np.stack(
-        [
-            ax * np.sin(fx_ * t),
-            ay * np.sin(fy_ * t + 0.7),
-            p.height + az * np.sin(fz_ * t),
-        ],
-        axis=-1,
-    )
-    vel = np.stack(
-        [
-            ax * fx_ * np.cos(fx_ * t),
-            ay * fy_ * np.cos(fy_ * t + 0.7),
-            az * fz_ * np.cos(fz_ * t),
-        ],
-        axis=-1,
-    )
-    yaw = np.unwrap(np.arctan2(vel[:, 1], vel[:, 0]))
-    roll = 0.05 * np.sin(2 * np.pi * 0.3 * t)
-    pitch = 0.04 * np.sin(2 * np.pi * 0.25 * t + 1.1)
-    cy_, sy_ = np.cos(yaw / 2), np.sin(yaw / 2)
-    cr, sr = np.cos(roll / 2), np.sin(roll / 2)
-    cp, sp = np.cos(pitch / 2), np.sin(pitch / 2)
-    # q = qz(yaw) * qy(pitch) * qx(roll), w-first Hamilton
-    qz = np.stack([cy_, 0 * cy_, 0 * cy_, sy_], axis=-1)
-    qy = np.stack([cp, 0 * cp, sp, 0 * cp], axis=-1)
-    qx = np.stack([cr, sr, 0 * cr, 0 * cr], axis=-1)
-    return _qmul(qz, _qmul(qy, qx)), pos
-
-
-def _landmarks(p: EurocSimParams, rng):
-    """Landmarks on the 4 walls + ceiling of the box (``euroc_sim.py:98``)."""
-    bx, by, bz = p.box
-    n = p.nb_landmarks
-    per = n // 5
-    walls = []
-    u1 = rng.uniform(-bx / 2, bx / 2, per)
-    v1 = rng.uniform(0.2, bz, per)
-    walls.append(np.stack([u1, np.full(per, by / 2), v1], axis=-1))
-    walls.append(np.stack([u1, np.full(per, -by / 2), v1], axis=-1))
-    u2 = rng.uniform(-by / 2, by / 2, per)
-    walls.append(np.stack([np.full(per, bx / 2), u2, v1], axis=-1))
-    walls.append(np.stack([np.full(per, -bx / 2), u2, v1], axis=-1))
-    rest = n - 4 * per
-    walls.append(
-        np.stack(
-            [
-                rng.uniform(-bx / 2, bx / 2, rest),
-                rng.uniform(-by / 2, by / 2, rest),
-                np.full(rest, bz),
-            ],
-            axis=-1,
-        )
-    )
-    return np.concatenate(walls, axis=0)
 
 
 def make_euroc_frames(params: EurocSimParams = EUROC_FRONTEND,
                       seed: int = 0) -> np.ndarray:
     """(T, height_px, width) uint8 cam0 frames of the simulated EuRoC
-    sequence (``euroc_sim.py:186-220, 253-261``)."""
-    p = params
-    rng = np.random.default_rng(seed)
-    n_imu = int(round(p.duration * p.imu_hz)) + 1
-    t = np.arange(n_imu) * (1.0 / p.imu_hz)
-    q, pos = _trajectory(p, t)
-
-    cam_idx = np.arange(0, n_imu, int(round(p.imu_hz / p.cam_hz)))
-    lm = _landmarks(p, rng)  # the only draws of ``rng`` the frames see
-    Kmat = np.array([[p.fx, 0, p.cx], [0, p.fy, p.cy], [0, 0, 1]])
-    qbc = _q_bc_np(np.float64)
-    q_GC_all = _qmul(q[cam_idx], np.broadcast_to(qbc, (len(cam_idx), 4)).copy())
-    R_all = so3.quat_to_rot(torch.from_numpy(q_GC_all)).numpy()
-    d_all = lm[None, :, :] - pos[cam_idx, None, :]
-    pc_all = np.einsum("fmj,fjk->fmk", d_all, R_all)  # R^T d per frame
-    z_all = pc_all[..., 2]
-    uvh_all = np.einsum("fmj,kj->fmk", pc_all, Kmat)
-    uv_frames = uvh_all[..., :2] / np.where(
-        np.abs(z_all) < 1e-9, 1e-9, z_all
-    )[..., None]
-    vis_frames = (
-        (z_all > 0.5) & (z_all < 25.0)
-        & (uv_frames[..., 0] >= 0) & (uv_frames[..., 0] < p.width)
-        & (uv_frames[..., 1] >= 0) & (uv_frames[..., 1] < p.height_px)
-    )
-    tex = landmark_textures(lm.shape[0], seed=seed + 101)
-    return render_sequence(uv_frames, vis_frames, tex, p.width, p.height_px)
+    sequence (``euroc_sim.cam0_frames``)."""
+    return cam0_frames(params, seed)
 
 
 def top2_edge_cases(seed: int = 4):
@@ -238,6 +123,33 @@ def top2_edge_cases(seed: int = 4):
                   np.concatenate([d2, d2]), None))
     small = rng.integers(0, 4, (50, 1)).astype(np.uint32)
     cases.append(("W=1 tie-heavy", small, np.tile(small, (3, 1)), None))
+    return cases
+
+
+def table_edge_cases(seed: int = 9):
+    """Hamming-table inputs as numpy arrays: a list of ``(name, d1 (N1, W)
+    uint32, d2 (N2, W) uint32)``. Every W the table kernel is built for (1,
+    2 and 4 pad k with zero words) with duplicate rows; ragged N1 and N2
+    (1, 7, 33, 100, 4,097: partial tiles, N2 % 4 != 0 takes scalar stores)
+    at W = 16, 8 and 2; a 2,048-row bank against itself reversed (1,024
+    full 64 x 64 tiles)."""
+    rng = np.random.default_rng(seed)
+
+    def bank(n, w):
+        return rng.integers(0, 2**32, (n, w), dtype=np.uint64).astype(np.uint32)
+
+    cases = []
+    for w in (1, 2, 4, 8, 16, 32):
+        d2 = bank(300, w)
+        d2[200:] = d2[:100]
+        cases.append((f"300x300x{w}, duplicates",
+                      np.concatenate([d2[:50], bank(250, w)]), d2))
+    for n1, n2 in ((1, 7), (7, 1), (33, 100), (100, 33), (4097, 1),
+                   (1, 4097), (4097, 100), (130, 4097)):
+        for w in (16, 8, 2):
+            cases.append((f"{n1}x{n2}x{w}", bank(n1, w), bank(n2, w)))
+    big = bank(2048, 16)
+    cases.append(("2048x2048x16, reversed", big, big[::-1].copy()))
     return cases
 
 

@@ -1,9 +1,10 @@
 // Hamming-distance kernels over packed binary descriptors, for Hopper (sm_90a).
 //
 // Descriptors are rows of W 32-bit words (the port stores the uint32 bit
-// patterns in int32 tensors; the kernels read them as uint32). Both kernels
-// share one inner loop: XOR a query word with a reference word and count the
-// set bits with __popc, W times per (query, reference) pair.
+// patterns in int32 tensors; the kernels read them as uint32). The top-2
+// XORs a query word with a reference word and counts the set bits with
+// __popc, W times per (query, reference) pair, on the CUDA cores; the table
+// counts the bits of a AND b on the tensor cores.
 //
 // hamming_top2: replaces the Pallas kernel libwave_tpu/ops/hamming.py
 // _top2_kernel (wrappers _run_top2, hamming_top2). For every query row it
@@ -33,8 +34,9 @@
 // rows are padded (kStageStride) so that the lanes' 16-byte reads of
 // different rows do not collide in a bank. The launch picks one of two
 // shapes from N1 (top2_plan): where N1 fills two blocks of 128 threads per
-// SM of the device (top2_min_blocks) with 4 rows per thread (2 at W = 32, for registers) and 32
-// lanes, that (a 16,384-row bank: 1,024 blocks); else 4 rows of 128 lanes
+// SM of the device (two_blocks_per_sm) with 4 rows per thread (2 at W = 32,
+// for registers) and 32 lanes, that (a 16,384-row bank: 1,024 blocks);
+// else 4 rows of 128 lanes
 // in blocks of 512, one row per thread, so that each SM still stages the
 // bank once and runs 4 warps per scheduler (a frame's 512 queries: 128
 // blocks, 4 columns a lane; 2,048 queries: 512 blocks). bench_designs.py
@@ -50,14 +52,32 @@
 //
 // hamming_table: replaces the Pallas kernel libwave_tpu/ops/hamming.py
 // _kernel (wrappers _run, hamming_distance_pallas): the full (N1, N2) int32
-// table. One block per 32 x 32 output tile, 32 x 8 threads, each thread one
-// column and four rows; both operand tiles in shared memory (the reference
-// tile padded to W + 1 words a row, so the column reads do not collide in
-// one bank), ragged edges masked, and consecutive threads store consecutive
-// columns. Bound: the int32 write, 4 * N1 * N2 bytes (67 MB, 20 us at
-// 3.35 TB/s for 4,096 x 4,096), next to the same popcount floor (64 us for
-// 4,096 x 4,096 x 16; 1.0 us against 0.3 us of bytes for a frame), so at
-// W = 16 the popcounts bound it, not the write.
+// table, as a 1-bit matrix product on the tensor cores. With
+//   popc(a ^ b) = popc(a) + popc(b) - 2 popc(a & b),
+// the sum over a descriptor's words of popc(a & b) is a single-bit matrix
+// product: mma.sync m16n8k256 .b1 with .and.popc accumulates it in s32
+// fragments, 256 bits of k per instruction. Each block of 4 warps takes one
+// 64 x 64 output tile (each warp 32 x 32), stages its A and B rows in
+// shared memory with cp.async (rows padded to W + 4 words, so that the
+// fragment loads of 8 rows x 4 words hit 32 distinct banks), counts the
+// rows' bits there, runs the products and writes pa[i] + pb[j] - 2 acc
+// with 16-byte streaming stores (where N2 % 4 == 0; the fragment pairs of
+// two lanes are swapped so that each lane holds 4 consecutive columns of
+// one row). W < 8 pads k with zero words, which
+// change neither the AND counts nor pa and pb. Integer arithmetic
+// throughout: the table equals the plain version exactly.
+//
+// Bound. The write of 4 N1 N2 bytes: 67 MB, 20 us at 3.35 TB/s for 4,096 x
+// 4,096 (the two banks are 0.5 MB). The tensor cores' rate on .b1 is not
+// in the H100 data sheet; bench_designs.py measures it (1.03e16 operations
+// a second on an H100 SXM at 700 W, an AND and an add per bit pair), so the
+// products take 1.7 us there: the write bounds the table. The first version
+// (one block per 32 x 32 tile, XOR + POPC on the CUDA cores, kept in
+// table_designs.cu) could at best reach the popcount issue rate above:
+// 64 us at 4,096 x 4,096 x 16. One tile shape ships: the matcher's tables
+// are at most a frame's 512 x 512, where 64-tiles fill the SMs; 128 x 128
+// tiles of 8 warps write large tables (4,096^2 and up) about 8% faster and
+// are kept in table_designs.cu until a path of the port makes such tables.
 
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
@@ -69,8 +89,7 @@ constexpr int kBig = 1 << 24;
 constexpr unsigned kFullMask = 0xffffffffu;
 constexpr int kTop2Threads = 128;        // top-2: threads per block
 constexpr int kTop2WideThreads = 512;    // top-2: block of 4 rows x 128 lanes
-constexpr int kT = 32;                   // table: output tile edge
-constexpr int kTY = 8;                   // table: thread rows per block
+constexpr int kTableTile = 64;           // table: output tile edge
 
 // One descriptor row of W words into registers, through the read-only
 // cache: 16-byte loads when `vec` (W % 4 == 0 and a 16-byte aligned bank),
@@ -279,7 +298,7 @@ long long top2_blocks(int n1, Top2Plan p) {
 
 // Two blocks per SM of the device that is current at the first call (the
 // SM count read once).
-long long top2_min_blocks() {
+long long two_blocks_per_sm() {
   static const long long blocks = [] {
     int dev = 0, sms = 0;
     cudaGetDevice(&dev);
@@ -294,7 +313,7 @@ long long top2_min_blocks() {
 template <int W>
 Top2Plan top2_plan(int n1) {
   const Top2Plan rows{W >= 32 ? 2 : 4, 32, kTop2Threads};
-  if (top2_blocks(n1, rows) >= top2_min_blocks()) return rows;
+  if (top2_blocks(n1, rows) >= two_blocks_per_sm()) return rows;
   return Top2Plan{1, kTop2WideThreads / 4, kTop2WideThreads};
 }
 
@@ -323,46 +342,189 @@ int launch_top2(const void* d1, const void* d2, const void* mask2, void* best,
       d1, d2, mask2, best, second, index, n1, n2, p.lanes, s);
 }
 
+// Table: k padded to whole 256-bit steps, and the shared row stride.
 template <int W>
-__global__ void __launch_bounds__(kT * kTY)
-    table_kernel(const uint32_t* __restrict__ d1, const uint32_t* __restrict__ d2,
-                 int* __restrict__ out, int n1, int n2) {
-  __shared__ uint32_t s_a[kT][W];
-  __shared__ uint32_t s_b[kT][W + 1];
+constexpr int kTableWords = W < 8 ? 8 : W;
+template <int W>
+constexpr int kTableStride = kTableWords<W> + 4;
 
-  const int r0 = blockIdx.y * kT;
-  const int c0 = blockIdx.x * kT;
-  const int tid = threadIdx.y * kT + threadIdx.x;
-  for (int i = tid; i < kT * W; i += kT * kTY) {
-    const int r = i / W, w = i % W;
-    s_a[r][w] = r0 + r < n1 ? d1[static_cast<long long>(r0 + r) * W + w] : 0u;
-    s_b[r][w] = c0 + r < n2 ? d2[static_cast<long long>(c0 + r) * W + w] : 0u;
+// D += popc(A & B) over 256 bits of k: A 16 x 256 (row), B 256 x 8 (col),
+// D 16 x 8 s32. Lane (g = lane / 4, t = lane % 4) holds A words (rows g,
+// g + 8; words t, t + 4 of the step), B words (column g; words t, t + 4)
+// and D (rows g, g + 8; columns 2t, 2t + 1).
+__device__ __forceinline__ void mma_and_popc(int (&d)[4],
+                                             const uint32_t (&a)[4],
+                                             const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k256.row.col.s32.b1.b1.s32.and.popc "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// Rows [r0, r0 + R) of a bank of W-word rows into shared memory at the
+// table's row stride, by cp.async; rows past n are zero. One commit group
+// is left to the caller.
+template <int W, int R, int T>
+__device__ __forceinline__ void stage_rows(uint32_t* s,
+                                           const uint32_t* __restrict__ d,
+                                           int r0, int n, bool vec) {
+  constexpr int S = kTableStride<W>;
+  if constexpr (W % 4 == 0) {
+    if (vec) {
+      for (int i = threadIdx.x; i < R * (W / 4); i += T) {
+        const int r = i / (W / 4), c = 4 * (i % (W / 4));
+        uint32_t* dst = s + r * S + c;
+        if (r0 + r < n)
+          __pipeline_memcpy_async(
+              dst, d + static_cast<long long>(r0 + r) * W + c, 16);
+        else
+          *reinterpret_cast<uint4*>(dst) = make_uint4(0u, 0u, 0u, 0u);
+      }
+      return;
+    }
+  }
+  for (int i = threadIdx.x; i < R * W; i += T) {
+    const int r = i / W, c = i % W;
+    if (r0 + r < n)
+      __pipeline_memcpy_async(s + r * S + c,
+                              d + static_cast<long long>(r0 + r) * W + c, 4);
+    else
+      s[r * S + c] = 0u;
+  }
+}
+
+// One BM x BN output tile per block, WM x WN warps (see the design note at
+// the top of the file). The grid is one-dimensional: tile (blockIdx.x /
+// tiles_n, blockIdx.x % tiles_n).
+template <int W, int BM, int BN, int WM, int WN>
+__global__ void __launch_bounds__(WM * WN * 32)
+    table_kernel(const uint32_t* __restrict__ d1,
+                 const uint32_t* __restrict__ d2, int* __restrict__ out,
+                 int n1, int n2, int tiles_n, bool vec_in, bool vec_out) {
+  constexpr int KW = kTableWords<W>;
+  constexpr int S = kTableStride<W>;
+  constexpr int T = WM * WN * 32;
+  constexpr int MT = BM / WM / 16;  // m16 tiles per warp
+  constexpr int NT = BN / WN / 8;   // n8 tiles per warp
+  __shared__ __align__(16) uint32_t s_a[BM * S];
+  __shared__ __align__(16) uint32_t s_b[BN * S];
+  __shared__ int s_pa[BM];
+  __shared__ int s_pb[BN];
+
+  const int r0 = (blockIdx.x / tiles_n) * BM;
+  const int c0 = (blockIdx.x % tiles_n) * BN;
+  stage_rows<W, BM, T>(s_a, d1, r0, n1, vec_in);
+  stage_rows<W, BN, T>(s_b, d2, c0, n2, vec_in);
+  __pipeline_commit();
+  if constexpr (KW > W) {  // the k padding: zero words
+    for (int i = threadIdx.x; i < (BM + BN) * (KW - W); i += T) {
+      const int r = i / (KW - W), c = W + i % (KW - W);
+      (r < BM ? s_a + r * S : s_b + (r - BM) * S)[c] = 0u;
+    }
+  }
+  __pipeline_wait_prior(0);
+  __syncthreads();
+  for (int i = threadIdx.x; i < BM + BN; i += T) {
+    const uint32_t* row = i < BM ? s_a + i * S : s_b + (i - BM) * S;
+    int p = 0;
+#pragma unroll
+    for (int w = 0; w < W; ++w) p += __popc(row[w]);
+    (i < BM ? s_pa[i] : s_pb[i - BM]) = p;
   }
   __syncthreads();
 
-  uint32_t b[W];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t = lane & 3;
+  const int wr = (warp / WN) * (BM / WM);  // the warp's first tile row
+  const int wc = (warp % WN) * (BN / WN);  // and column
+  int acc[MT][NT][4];
 #pragma unroll
-  for (int w = 0; w < W; ++w) b[w] = s_b[threadIdx.x][w];
-  const int col = c0 + threadIdx.x;
+  for (int i = 0; i < MT; ++i)
 #pragma unroll
-  for (int k = 0; k < kT / kTY; ++k) {
-    const int r = threadIdx.y + k * kTY;
-    int d = 0;
+    for (int j = 0; j < NT; ++j)
 #pragma unroll
-    for (int w = 0; w < W; ++w) d += __popc(s_a[r][w] ^ b[w]);
-    if (r0 + r < n1 && col < n2)
-      out[static_cast<long long>(r0 + r) * n2 + col] = d;
+      for (int k = 0; k < 4; ++k) acc[i][j][k] = 0;
+#pragma unroll
+  for (int k0 = 0; k0 < KW; k0 += 8) {
+    uint32_t a[MT][4], b[NT][2];
+#pragma unroll
+    for (int i = 0; i < MT; ++i) {
+      const uint32_t* p = s_a + (wr + 16 * i + g) * S + k0 + t;
+      a[i][0] = p[0];
+      a[i][1] = p[8 * S];
+      a[i][2] = p[4];
+      a[i][3] = p[8 * S + 4];
+    }
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      const uint32_t* p = s_b + (wc + 8 * j + g) * S + k0 + t;
+      b[j][0] = p[0];
+      b[j][1] = p[4];
+    }
+#pragma unroll
+    for (int i = 0; i < MT; ++i)
+#pragma unroll
+      for (int j = 0; j < NT; ++j) mma_and_popc(acc[i][j], a[i], b[j]);
   }
+
+  // lanes 2u and 2u + 1 swap halves: the even lane then holds row g,
+  // columns 4 (t / 2) .. + 3; the odd lane row g + 8, the same columns
+  const bool odd = t & 1;
+#pragma unroll
+  for (int i = 0; i < MT; ++i) {
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      const int* c = acc[i][j];
+      const int x0 = __shfl_xor_sync(kFullMask, odd ? c[0] : c[2], 1);
+      const int x1 = __shfl_xor_sync(kFullMask, odd ? c[1] : c[3], 1);
+      const int v[4] = {odd ? x0 : c[0], odd ? x1 : c[1],
+                        odd ? c[2] : x0, odd ? c[3] : x1};
+      const int lr = wr + 16 * i + g + (odd ? 8 : 0);
+      const int lc = wc + 8 * j + 2 * (t & 2);
+      const int row = r0 + lr, col = c0 + lc;
+      if (row >= n1) continue;
+      const int pa = s_pa[lr];
+      int o[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) o[k] = pa + s_pb[lc + k] - 2 * v[k];
+      int* dst = out + static_cast<long long>(row) * n2 + col;
+      if (vec_out && col + 3 < n2) {
+        __stcs(reinterpret_cast<int4*>(dst), make_int4(o[0], o[1], o[2], o[3]));
+      } else {
+#pragma unroll
+        for (int k = 0; k < 4; ++k)
+          if (col + k < n2) __stcs(dst + k, o[k]);
+      }
+    }
+  }
+}
+
+// The table_kernel of tile shape BM x BN over WM x WN warps on an n1 x n2
+// table: 16-byte loads and stores where the pointers and W, N2 allow.
+template <int W, int BM, int BN, int WM, int WN>
+int run_table(const void* d1, const void* d2, void* out, int n1, int n2,
+              cudaStream_t s) {
+  const long long blocks =
+      static_cast<long long>((n1 + BM - 1) / BM) * ((n2 + BN - 1) / BN);
+  if (blocks > 0x7fffffffLL)
+    return static_cast<int>(cudaErrorInvalidConfiguration);
+  const bool vec_in = W % 4 == 0 &&
+                      reinterpret_cast<uintptr_t>(d1) % 16 == 0 &&
+                      reinterpret_cast<uintptr_t>(d2) % 16 == 0;
+  const bool vec_out = n2 % 4 == 0 && reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  table_kernel<W, BM, BN, WM, WN>
+      <<<static_cast<unsigned>(blocks), WM * WN * 32, 0, s>>>(
+          static_cast<const uint32_t*>(d1), static_cast<const uint32_t*>(d2),
+          static_cast<int*>(out), n1, n2, (n2 + BN - 1) / BN, vec_in,
+          vec_out);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <int W>
 int launch_table(const void* d1, const void* d2, void* out, int n1, int n2,
                  cudaStream_t s) {
-  const dim3 grid((n2 + kT - 1) / kT, (n1 + kT - 1) / kT);
-  table_kernel<W><<<grid, dim3(kT, kTY), 0, s>>>(
-      static_cast<const uint32_t*>(d1), static_cast<const uint32_t*>(d2),
-      static_cast<int*>(out), n1, n2);
-  return static_cast<int>(cudaGetLastError());
+  return run_table<W, kTableTile, kTableTile, 2, 2>(d1, d2, out, n1, n2, s);
 }
 
 }  // namespace
@@ -394,7 +556,6 @@ extern "C" int hamming_top2_i32(const void* d1, const void* d2,
 extern "C" int hamming_table_i32(const void* d1, const void* d2, void* out,
                                  int n1, int n2, int w, void* stream) {
   if (n1 <= 0 || n2 <= 0) return 0;
-  if ((n1 + kT - 1) / kT > 65535) return static_cast<int>(cudaErrorInvalidConfiguration);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (w) {
     case 1: return launch_table<1>(d1, d2, out, n1, n2, s);

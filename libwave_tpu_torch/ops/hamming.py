@@ -10,8 +10,8 @@ version:
   distance and the first index reaching the best, without the (N1, N2)
   table: the knnMatch(k=2) of the ratio test. Replaces the Pallas
   ``_top2_kernel``.
-- :func:`hamming_distance`: the full (N1, N2) int32 table. Replaces the
-  Pallas ``_kernel``.
+- :func:`hamming_distance`: the full (N1, N2) int32 table, as a 1-bit
+  matrix product on the tensor cores. Replaces the Pallas ``_kernel``.
 
 On a CUDA tensor each wrapper launches its kernel (built with ``nvcc`` for
 ``sm_90a`` at first use, bound with ``ctypes``) or raises; on a CPU tensor it
@@ -192,8 +192,6 @@ def hamming_distance(d1: torch.Tensor, d2: torch.Tensor) -> torch.Tensor:
     out = torch.empty((n1, n2), dtype=torch.int32, device=d1.device)
     if n1 == 0 or n2 == 0:
         return out
-    if n1 > 65535 * 32:
-        raise ValueError(f"hamming_distance: at most {65535 * 32} query rows")
     lib, _ = _library()
     with torch.cuda.device(d1.device):
         err = lib.hamming_table_i32(

@@ -1,4 +1,5 @@
-"""Bundle-adjustment back end (port of ``libwave_tpu.optim``'s BA path)."""
+"""Bundle-adjustment back end (port of ``libwave_tpu.optim``'s BA path)
+and the host-side Schur marginalization."""
 
 from libwave_tpu_torch.optim.ba import (  # noqa: F401
     BAConfig,
@@ -7,6 +8,10 @@ from libwave_tpu_torch.optim.ba import (  # noqa: F401
     ba_cost,
     ba_reduced_hessian,
     solve_ba,
+)
+from libwave_tpu_torch.optim.marginalization import (  # noqa: F401
+    psd_project,
+    schur_marginalize,
 )
 from libwave_tpu_torch.optim.pose_graph import (  # noqa: F401
     BetweenBank,

@@ -40,6 +40,7 @@ import torch
 from libwave_tpu_torch.ops import segmm
 from libwave_tpu_torch.ops.segmm import EllLayout, dense_g_a_window
 from libwave_tpu_torch.utils.device import resolve
+from libwave_tpu_torch.utils.precision import f32_matmuls
 
 
 def no_sharding(axis_name, what):
@@ -632,10 +633,13 @@ def _sym3_full(s):
 
 
 def _mm_f32(a, g):
-    """``a @ g.T`` rounded to f32, the reference's f32 S_sub contract."""
+    """``a @ g.T`` rounded to f32, the reference's f32 S_sub contract. Its
+    callers run it under :func:`f32_matmuls`, so it is full f32 whatever
+    TF32 setting the caller left."""
     return (a @ g.T).to(torch.float32)
 
 
+@f32_matmuls
 def dense_reduced_system(blocks: SchurBlocks,
                          max_g_bytes: float | None = None,
                          bands: BandPlan | None = None,
@@ -766,10 +770,13 @@ def chol_solve_mixed(Se, rhs):
     return torch.linalg.solve_triangular(L.mT, y, upper=True)
 
 
+@f32_matmuls
 def dense_schur_solve(blocks: SchurBlocks, b: torch.Tensor) -> torch.Tensor:
     """Explicit reduced camera system + dense Cholesky (Ceres DENSE_SCHUR
     analog). x: (N, D) solution of S x = b with gauge-fixed coordinates
-    pinned."""
+    pinned. Both this and :func:`dense_reduced_system` turn TF32 off
+    themselves (the reference pins ``Precision.HIGHEST`` on its
+    contraction), so a direct caller gets full f32 whatever it set."""
     D = blocks.bp.shape[1]
     N = blocks.Hpp.shape[0]
     dtype = blocks.bp.dtype

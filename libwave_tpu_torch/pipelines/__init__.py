@@ -1,6 +1,12 @@
 """End-to-end pipelines (port of ``libwave_tpu.pipelines``' visual front
-end and VIO)."""
+end, VIO and EuRoC VIO)."""
 
+from libwave_tpu_torch.pipelines.euroc_vio import (  # noqa: F401
+    EurocVIOParams,
+    build_euroc_vio_problem,
+    default_vio_config,
+    run_euroc_vio,
+)
 from libwave_tpu_torch.pipelines.vio import (  # noqa: F401
     VIOConfig,
     VIOProblem,

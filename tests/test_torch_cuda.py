@@ -16,6 +16,7 @@ bit-identical across runs; the broadcast copies: exact equality. The
 Hamming outputs are integers: exact equality.
 """
 
+import contextlib
 import dataclasses
 from unittest import mock
 
@@ -28,6 +29,7 @@ from libwave_tpu_torch.ops import hamming, segmm
 from libwave_tpu_torch.optim import ba, schur
 from libwave_tpu_torch.pipelines import vio, visual_frontend
 from libwave_tpu_torch.sim import vo_dataset
+from libwave_tpu_torch.utils import precision
 
 
 @pytest.fixture
@@ -99,6 +101,50 @@ def test_small_solve_through_kernel(cuda_device):
     costs, costs_p = info["costs"].cpu().numpy(), info_p["costs"].cpu().numpy()
     assert np.isfinite(costs).all() and costs[-1] < float(info["initial_cost"])
     np.testing.assert_allclose(costs, costs_p, rtol=1e-3)
+
+
+@contextlib.contextmanager
+def _tf32_allowed():
+    """Let float32 matmuls take TF32, as a careless caller might; restore
+    the flags after."""
+    mm = torch.backends.cuda.matmul
+    if precision._new_api():
+        saved = mm.fp32_precision
+        mm.fp32_precision = "tf32"
+        try:
+            yield
+        finally:
+            mm.fp32_precision = saved
+    else:
+        saved = mm.allow_tf32
+        mm.allow_tf32 = True
+        try:
+            yield
+        finally:
+            mm.allow_tf32 = saved
+
+
+@pytest.mark.cuda
+def test_explicit_s_is_full_f32_under_a_tf32_caller(cuda_device):
+    """``dense_reduced_system`` on the headline problem's bands and
+    ``dense_schur_solve``, called directly with TF32 allowed, equal the
+    same calls made under ``full_f32`` bit for bit: both pin full f32
+    themselves."""
+    problem, state = bench_problem.make_problem(device=cuda_device)
+    lam = torch.tensor(1e-4, dtype=state.p.dtype, device=cuda_device)
+    with precision.full_f32():
+        blocks = ba._linearize_ba(problem, state, lam)
+        rhs = schur.schur_rhs(blocks)
+        S_ref = schur.dense_reduced_system(blocks, bands=problem.bands)
+        x_ref = schur.dense_schur_solve(blocks, rhs)
+    with _tf32_allowed():
+        assert precision.tf32_enabled()
+        S = schur.dense_reduced_system(blocks, bands=problem.bands)
+        x = schur.dense_schur_solve(blocks, rhs)
+        assert precision.tf32_enabled()
+    torch.cuda.synchronize()
+    assert torch.equal(S, S_ref)
+    assert torch.equal(x, x_ref)
 
 
 def _assert_g_a_close(G, A, Gr, Ar, single):
@@ -229,6 +275,43 @@ def test_top2_kernel_edge_cases(cuda_device, case):
     torch.cuda.synchronize()
     for g, r in zip(got, ref):
         assert torch.equal(g, r)
+
+
+TABLE_EDGES = bench_frontend.table_edge_cases()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", range(len(TABLE_EDGES)),
+                         ids=[c[0] for c in TABLE_EDGES])
+def test_table_kernel_edge_cases(cuda_device, case):
+    """The tensor-core table at every W (1, 2 and 4 pad k with zero words),
+    ragged N1 and N2 (partial tiles, scalar stores) and a 2,048-row bank:
+    exactly the plain version (the CPU tests hold the plain version to the
+    Pallas kernel)."""
+    _, d1, d2 = TABLE_EDGES[case]
+    a, b = (torch.as_tensor(x.view(np.int32), device=cuda_device)
+            for x in (d1, d2))
+    before = hamming.hamming_distance.launches
+    got = hamming.hamming_distance(a, b)
+    assert hamming.hamming_distance.launches == before + 1
+    ref = hamming.hamming_distance_reference(a, b)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref)
+
+
+@pytest.mark.cuda
+def test_table_kernel_unaligned_banks(cuda_device):
+    """Banks 4 bytes past a 16-byte boundary take the table's 4-byte
+    copies."""
+    rng = np.random.default_rng(6)
+    flat = torch.zeros(700 * 16 + 1, dtype=torch.int32, device=cuda_device)
+    view = flat[1:].view(700, 16)
+    view.copy_(_words(rng, cuda_device, 700, 16))
+    assert view.data_ptr() % 16
+    got = hamming.hamming_distance(view[:300], view)
+    torch.cuda.synchronize()
+    assert torch.equal(got, hamming.hamming_distance_reference(view[:300],
+                                                               view))
 
 
 @pytest.mark.cuda
@@ -441,3 +524,41 @@ def test_small_vio_solve_through_kernels(cuda_device):
         np.testing.assert_allclose(c0, c0_cpu, rtol=1e-12)
         np.testing.assert_allclose(c, c_cpu,
                                    rtol=1e-2 if solver == "auto" else 1e-9)
+
+
+@pytest.mark.cuda
+def test_small_euroc_vio_through_kernels(cuda_device, tmp_path):
+    """A 3 s EuRoC sequence (16 keyframes) written, built and solved on the
+    card in f32 (the dense path: 1 G/A, 3 reduces, 1 broadcast per LM
+    iteration) against the same build and solve on the CPU: final cost
+    within rtol 1e-3 and keyframe positions within 1 mm (after 5 iterations
+    the final cost is about 24, and the card and CPU solves part by 1.9e-4
+    in it; chip_smoke.py's 25-iteration solve of the full sequence parts by
+    5.7e-6 and is held to rtol 1e-4)."""
+    from libwave_tpu_torch.pipelines import euroc_vio
+    from libwave_tpu_torch.sim import euroc_sim
+
+    root = str(tmp_path)
+    euroc_sim.generate_euroc_sequence(
+        root, euroc_sim.EurocSimParams(duration=3.0, nb_landmarks=40),
+        seed=3, device=cuda_device)
+    cfg = dataclasses.replace(
+        euroc_vio.default_vio_config(euroc_vio.EurocVIOParams()),
+        max_iterations=5)
+    out = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        before = _launches()
+        state, rep = euroc_vio.run_euroc_vio(root, cfg=cfg, device=dev)
+        grew = tuple(a - b for a, b in zip(_launches(), before))
+        out[dev.type] = (state, rep, grew)
+    (st, rep, grew), (st_c, rep_c, grew_c) = out["cuda"], out["cpu"]
+    assert grew == (5, 15, 5) and grew_c == (0, 0, 0)
+    assert st.q.dtype == torch.float32 and rep["num_keyframes"] == 16
+    assert np.isfinite(rep["final_cost"])
+    assert rep["final_cost"] < rep["initial_cost"]
+    assert rep["ate_rmse"] < rep["ate_rmse_deadreckon"]
+    rel = abs(rep["final_cost"] / rep_c["final_cost"] - 1)
+    dp = float((st.p.cpu() - st_c.p).abs().max())
+    print(f"card vs CPU: final cost relative difference {rel:.3e}, keyframe "
+          f"positions within {dp:.3e} m")
+    assert rel <= 1e-3 and dp <= 1e-3, (rel, dp)

@@ -126,3 +126,64 @@ def test_empty_reference_bank():
     best, second, idx = hamming.hamming_top2(d1, torch.zeros((0, 4), dtype=torch.int32))
     assert best.tolist() == [hamming.BIG] * 3 and second.tolist() == [hamming.BIG] * 3
     assert idx.tolist() == [0, 0, 0]
+
+
+TABLE_EDGES = bench_frontend.table_edge_cases()
+SMALL_TABLE_EDGES = [c for c in TABLE_EDGES if len(c[1]) * len(c[2]) <= 10**5]
+
+
+@pytest.mark.parametrize("name,d1,d2", SMALL_TABLE_EDGES,
+                         ids=[c[0] for c in SMALL_TABLE_EDGES])
+def test_table_edge_cases_plain_equals_pallas(name, d1, d2):
+    """The table cases the card holds the tensor-core kernel to
+    (``tests/test_torch_cuda.py``, ``chip_smoke.py``): every W, ragged N1
+    and N2; the larger ones are held to the plain version alone."""
+    ref = np.asarray(hamming_distance_pallas(jnp.asarray(d1), jnp.asarray(d2)))
+    got = hamming.hamming_distance(interop.desc_from_numpy(d1, "cpu"),
+                                   interop.desc_from_numpy(d2, "cpu"))
+    np.testing.assert_array_equal(got.numpy(), ref)
+
+
+_POPC8 = torch.tensor([bin(i).count("1") for i in range(256)],
+                      dtype=torch.int32)
+
+
+def _popc(x):
+    """Bits set in each int32 word, summed over the last axis."""
+    return _POPC8[x.contiguous().view(torch.uint8).long()].sum(-1)
+
+
+def _and_popcount_table(d1, d2):
+    """The tensor-core table kernel's arithmetic: k padded to whole 8-word
+    (256-bit) steps with zero words, the row popcounts pa and pb, the
+    AND-popcount products, and pa[i] + pb[j] - 2 * acc[i, j]."""
+    w = d1.shape[1]
+    kw = 8 * -(-w // 8)
+    a = torch.nn.functional.pad(d1, (0, kw - w))
+    b = torch.nn.functional.pad(d2, (0, kw - w))
+    pa, pb = _popc(a), _popc(b)
+    acc = torch.stack([_popc(torch.bitwise_and(row[None, :], b))
+                       for row in a]) if len(a) else pa[:, None]
+    return pa[:, None] + pb[None, :] - 2 * acc
+
+
+@pytest.mark.parametrize("case", range(len(TABLE_EDGES) + 3))
+def test_table_and_popcount_identity(case):
+    """popc(a ^ b) = popc(a) + popc(b) - 2 popc(a & b), summed over the
+    words with zero words padding k to 256 bits: what the card's table
+    kernel computes equals the plain table exactly, on the shared edge
+    cases (the 2,048-row bank cut to 300 rows) and on random banks with
+    every bit pattern density."""
+    if case < len(TABLE_EDGES):
+        _, d1, d2 = TABLE_EDGES[case]
+        d1, d2 = d1[:300], d2[:300]
+    else:
+        rng = np.random.default_rng(case)
+        w = (3, 5, 12)[case - len(TABLE_EDGES)]  # widths off the 8-word grid
+        dense = rng.integers(0, 2**32, (70, w), dtype=np.uint64)
+        d1 = (dense & rng.integers(0, 2**32, (70, w), dtype=np.uint64)
+              ).astype(np.uint32)
+        d2 = np.concatenate([d1[:20], ~d1[20:40], dense[:30].astype(np.uint32)])
+    t1, t2 = (interop.desc_from_numpy(x, "cpu") for x in (d1, d2))
+    assert torch.equal(_and_popcount_table(t1, t2),
+                       hamming.hamming_distance_reference(t1, t2))

@@ -38,7 +38,9 @@ for new in ("ops.hamming", "vision.matcher", "vision.tracker",
             "bench_frontend", "sim.render", "utils.config", "ops.segmm",
             "geometry.se3", "benchmark.trajectory", "optim.imu",
             "kinematics.two_wheel", "vision.camera", "sim.vo_dataset",
-            "pipelines.vio", "utils.device", "launch_count"):
+            "pipelines.vio", "utils.device", "launch_count",
+            "datasets.euroc", "sim.euroc_sim", "optim.marginalization",
+            "pipelines.euroc_vio", "bench_designs"):
     assert "libwave_tpu_torch." + new in names, new
 print("imported", len(names), "modules")
 """
@@ -56,7 +58,8 @@ def test_port_and_chip_smoke_import_without_jax():
     proc = _run(["-c", IMPORT_ALL])
     assert proc.returncode == 0, proc.stderr
     count = int(proc.stdout.split()[1])
-    assert count >= 38  # the back end's, the front end's and VIO's modules
+    # the back end's, the front end's, VIO's and EuRoC VIO's modules
+    assert count >= 43
 
 
 def test_chip_smoke_fails_without_cuda():

@@ -14,8 +14,13 @@ reference's synthetic BA dataset go through both packages. Tolerances:
   condition number;
 - explicit S (scatter, G/A full, chunked, banded): atol 2e-5 * max|S|, the
   bound the reference's own tests use (test_ba.py:414), because the G/A
-  path rounds G, A and S_sub to f32 at any dtype.
+  path rounds G, A and S_sub to f32 at any dtype;
+- the explicit-S contraction runs with TF32 off whatever the caller set:
+  a recorded flag, exact.
 """
+
+import contextlib
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -30,6 +35,7 @@ from libwave_tpu_torch import interop
 from libwave_tpu_torch.ops import segmm
 from libwave_tpu_torch.optim import ba as tba
 from libwave_tpu_torch.optim import schur as ts
+from libwave_tpu_torch.utils import precision
 
 N, M = 6, 25
 
@@ -342,3 +348,70 @@ def test_reduced_system_window_route_matches_slices(form, dataset_blocks,
 
     monkeypatch.setattr(ts, "dense_g_a_window", sliced)
     assert torch.equal(S_window, ts.dense_reduced_system(bt, **kw))
+
+
+@contextlib.contextmanager
+def _tf32_allowed():
+    """Let float32 CUDA matmuls take TF32, as a careless caller might;
+    restore the flags after."""
+    mm = torch.backends.cuda.matmul
+    if precision._new_api():
+        saved = mm.fp32_precision
+        mm.fp32_precision = "tf32"
+        try:
+            yield
+        finally:
+            mm.fp32_precision = saved
+    else:
+        saved = mm.allow_tf32
+        mm.allow_tf32 = True
+        try:
+            yield
+        finally:
+            mm.allow_tf32 = saved
+
+
+def _matmul_setting():
+    mm = torch.backends.cuda.matmul
+    return mm.fp32_precision if precision._new_api() else mm.allow_tf32
+
+
+@pytest.mark.parametrize("fn", ["dense_reduced_system", "dense_schur_solve"])
+@pytest.mark.parametrize("form", ["g_a_full", "chunked", "banded"])
+def test_explicit_s_contraction_pins_full_f32(fn, form, dataset_blocks,
+                                              monkeypatch):
+    """The explicit-S contraction ``A @ G^T`` (``_mm_f32``) and the dense
+    solve's Cholesky run with TF32 off when the caller allowed it, and the
+    caller's setting comes back after, as the reference pins
+    ``Precision.HIGHEST`` itself (``libwave_tpu/optim/schur.py:831-843``)."""
+    problem, _, bt = dataset_blocks
+    n, m = bt.Hpp.shape[0], bt.bl.shape[-1]
+    kw, _ = _form_kw(form, problem, n, m)
+    seen = []
+    real_mm, real_chol = ts._mm_f32, ts.chol_solve_mixed
+    real_drs = ts.dense_reduced_system
+
+    def mm_spy(a, g):
+        seen.append(("mm", precision.tf32_enabled(), _matmul_setting()))
+        return real_mm(a, g)
+
+    def chol_spy(*args):
+        seen.append(("chol", precision.tf32_enabled(), _matmul_setting()))
+        return real_chol(*args)
+
+    monkeypatch.setattr(ts, "_mm_f32", mm_spy)
+    monkeypatch.setattr(ts, "chol_solve_mixed", chol_spy)
+    with _tf32_allowed():
+        before = _matmul_setting()
+        assert precision.tf32_enabled()
+        if fn == "dense_reduced_system":
+            ts.dense_reduced_system(bt, **kw)
+        else:
+            # the solve builds S through the G/A route the form names
+            monkeypatch.setattr(ts, "dense_reduced_system",
+                                functools.partial(real_drs, **kw))
+            ts.dense_schur_solve(bt, ts.schur_rhs(bt))
+        assert _matmul_setting() == before and precision.tf32_enabled()
+    want = {"mm"} if fn == "dense_reduced_system" else {"mm", "chol"}
+    assert {s[0] for s in seen} == want
+    assert not any(s[1] for s in seen), seen
