@@ -92,7 +92,41 @@ it imports no JAX. Phases, each reported on its own line:
    keyframe positions within 1 mm: a quarter of the ATE; the two solves
    have parted by 5.5e-6 in cost and 1.6e-4 m); keyframes, landmarks, ATE,
    RPE, build seconds and solve keyframes/s;
-9. hamming: both Hamming kernels against their plain versions on the card,
+9. windowed: ``bench.py``'s ``euroc_long`` in full (130 s at 5 Hz, 600
+   landmarks, seed 0: 651 keyframes; the sequence written with a CPU
+   ``torch.Generator``, so a machine without a card writes the same
+   directory: its sha256 must equal the one taken where the JAX package's
+   ATE was read) through ``run_euroc_vio_windowed`` on the card, f32:
+   ``WindowedVIOParams(window=80, overlap=10, passes=2)`` and the freeze
+   ablation. Launches as worked out from the code (1 G/A, 3 reduces, 1
+   broadcast per LM iteration; 1, 2, 1 per device Schur complement), no
+   synchronizing call made inside a solver entry point outside
+   ``optim/schur.py``'s ``torch.linalg`` lines (the host loop's, such as
+   each window's transfers and the chunk's cost read, are listed), finite
+   window costs, no complement falling back to the host, the 2-pass ATE
+   below the freeze ablation's and under 0.05 m (the JAX package's bound,
+   ``tests/test_windowed_vio.py``; its ATE on the same directory is
+   printed beside), and the first 2 windows against the same
+   on this machine's CPU (window costs within rtol 1e-4, positions within
+   1 mm); solve and sequence keyframes/s, marginalization seconds;
+10. mh01_scale: ``bench.py``'s ``euroc_mh01_scale`` at its widths (20 Hz
+   camera, 200 Hz IMU, 900 landmarks, ``window=120, overlap=12``, one
+   pass), its 182 s cut to 36 s (721 keyframes, 7 windows; sha256 checked
+   as in windowed): the stiffness gate must widen the Hessian to f64
+   (f32 state, f64 pose-block sums, Cholesky and carried prior), launches
+   and syncs as in windowed, no host fallback, ATE within 1.5x + 1 mm of
+   the JAX package's on the same directory, and the first 2 windows
+   against the same widened path on this machine's CPU (window costs
+   within rtol 1e-4, positions within 1 mm);
+11. windowed_ba: the JAX package's windowed-BA test circle
+   (``bench_problem.windowed_ba_circle``: 181 frames, 120 landmarks, noisy
+   odometry and priors, numpy seeds) through ``solve_ba_windowed`` on the
+   card, f32, ``window=60, overlap=10``, 40 LM iterations a window
+   (explicit-S PCG): launches and syncs as worked out from the code,
+   position error under 0.1 m and rotation error under 0.05 rad (the
+   reference's bounds), and its first 2 windows against the CPU's with
+   explicit S (costs within rtol 1e-4, positions within 1 mm);
+12. hamming: both Hamming kernels against their plain versions on the card,
    exactly equal (integer outputs), at the frame's 512 x 512 x 16, at an
    unaligned 300 x 700 x 8 with ties, mask zeros, an all-masked bank and a
    single live column, at ``bench_frontend.top2_edge_cases`` (ties across
@@ -108,12 +142,12 @@ it imports no JAX. Phases, each reported on its own line:
    ``torch.cdist(p=0)`` on the banks unpacked to 0/1 f32 bits, with two
    bounds: the bytes, and the bit operations at the measured .b1 rate (the
    first kernel's: the popcount issue rate);
-10. pair: ``bench.py``'s two-frame pair (480x640 blobs and their (4, 7) roll,
+13. pair: ``bench.py``'s two-frame pair (480x640 blobs and their (4, 7) roll,
    FAST-512, BRISK, knn ratio + RANSAC) on the card: one top-2 launch per
    pair, pairs/s with the kernel and with the plain top-2; then the same pair
    through the distance heuristic with cross check, one table launch per
    pair, the same matches as with the plain table;
-11. sequence: the 25 EuRoC-resolution (752x480) frames of ``bench.py``'s
+14. sequence: the 25 EuRoC-resolution (752x480) frames of ``bench.py``'s
     front-end benchmark through ``track_sequence`` with ``FrontendParams()``:
     25 top-2 launches, tracks identical to the run with the plain top-2,
     contiguous tracks of mean length >= 3, rows and ids within 10% of the JAX
@@ -146,6 +180,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import traceback
 import warnings
 from pathlib import Path
 from unittest import mock
@@ -154,12 +189,25 @@ import numpy as np
 import torch
 
 import libwave_tpu_torch
-from libwave_tpu_torch import bench_designs, bench_frontend, bench_problem
+from libwave_tpu_torch import (
+    bench_designs,
+    bench_frontend,
+    bench_problem,
+    bench_windowed,
+)
 from libwave_tpu_torch.ops import hamming, segmm
 from libwave_tpu_torch.benchmark import Trajectory, absolute_trajectory_error
+from libwave_tpu_torch.geometry import so3
 from libwave_tpu_torch.geometry.se3 import SE3
 from libwave_tpu_torch.optim import ba, schur
-from libwave_tpu_torch.pipelines import euroc_vio, vio, visual_frontend
+from libwave_tpu_torch.optim.pose_graph import BetweenBank, PriorBank
+from libwave_tpu_torch.pipelines import (
+    euroc_vio,
+    vio,
+    visual_frontend,
+    windowed_ba,
+    windowed_vio,
+)
 from libwave_tpu_torch.sim import euroc_sim
 from libwave_tpu_torch.utils import precision
 from libwave_tpu_torch.vision import matcher
@@ -203,6 +251,31 @@ SEQUENCE_FRAMES = 25
 EUROC_SIM = euroc_sim.EurocSimParams(duration=16.0, nb_landmarks=200)
 EUROC_SEED = 3
 EUROC_ATE_BOUND_M = 0.03  # the JAX package's bound, tests/test_euroc_vio.py
+# bench.py's euroc_long phase (bench_euroc_long), in full: 651 keyframes
+WINDOWED_SIM = bench_windowed.LONG_SIM
+WINDOWED_ATE_BOUND_M = 0.05  # the JAX package's, tests/test_windowed_vio.py
+# bench.py's euroc_mh01_scale configuration at its widths (20 Hz camera,
+# 200 Hz IMU, 900 landmarks, W=120, O=12), its 182 s cut to 36 s (721
+# keyframes, 7 windows) to fit this script's time
+MH01_SIM = dataclasses.replace(bench_windowed.MH01_SIM, duration=36.0)
+# The JAX package's run_euroc_vio_windowed (f32 with explicit f64, as
+# bench.py runs it) on the same directories, written by this port's
+# generate_euroc_sequence with a CPU generator, on a CPU: ATE in m, and the
+# sha256 of the directories' imu0/data.csv and cam0/tracks.csv there
+# (tests/windowed_anchors.py long jax32, mh01_36 jax32).
+JAX_WINDOWED_ATE = {"marginalize_2pass": 0.022929711267352104,
+                    "freeze": 0.030840111896395683}
+JAX_MH01_ATE = 0.057505033910274506
+SEQUENCE_SHA256 = {
+    "windowed": ("5c10acfb06069452169a36b28e3cec39a597312bc6a6c048ff73f8f26fa2ab67",
+                 "def2627aba3eabad8923ef0bd5798e316385c14a11951b645f13b57bd87dcf29"),
+    "mh01_scale": ("3b1ba5f05e9b34bbd0828ff98029b4213792c695a4867b769590587fddb3b586",
+                   "ffb3097319cdfa8c71912bafed7195d3c450929e3eab2bea96e49ffd4d37739e"),
+}
+# windowed_ba: the JAX package's test circle, its bounds (the reference's
+# gtsam_offline_example.cpp:150,155)
+WBA_POS_BOUND_M = 0.1
+WBA_ROT_BOUND_RAD = 0.05
 
 
 class SmokeFailure(RuntimeError):
@@ -737,22 +810,35 @@ def _plain_crossings(plain):
         seg_broadcast=segmm.seg_broadcast_reference)
 
 
-def _sync_free(fn):
-    """Run ``fn`` under PyTorch's sync debug mode; return its result and the
-    synchronizing calls seen, as {file:line: count}."""
+def _sync_free(fn, solvers=None):
+    """Run ``fn`` under PyTorch's sync debug mode. Returns its result and
+    the synchronizing calls seen, as {file:line: count}; with ``solvers``
+    (a set of (resolved source file, function name)), two such counters:
+    the calls made while one of those functions was on the stack, and the
+    others (a windowed run's host loop)."""
+    inside, other = collections.Counter(), collections.Counter()
+    resolved = {}
+
+    def hook(message, category, filename, lineno, file=None, line=None):
+        if "called a synchronizing CUDA operation" not in str(message):
+            return
+        frames = solvers and {
+            (resolved.setdefault(f.filename, Path(f.filename).resolve()),
+             f.name) for f in traceback.extract_stack()}
+        site = f"{filename}:{lineno}"
+        (inside if not solvers or frames & solvers else other)[site] += 1
+
     torch.cuda.synchronize()
-    with warnings.catch_warnings(record=True) as caught:
+    with warnings.catch_warnings():
         warnings.simplefilter("always")
+        warnings.showwarning = hook
         torch.cuda.set_sync_debug_mode("warn")
         try:
             out = fn()
         finally:
             torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
-    return out, collections.Counter(
-        f"{w.filename}:{w.lineno}" for w in caught
-        if "called a synchronizing CUDA operation" in str(w.message)
-    )
+    return (out, inside, other) if solvers else (out, inside)
 
 
 def phase_matrix_free(problem, state, smi):
@@ -993,6 +1079,301 @@ def phase_euroc(dev, smi):
           f"{N / np.median(times):.3f} keyframes/s (runs "
           f"{', '.join(f'{N / t:.3f}' for t in times)}), build + solve "
           f"{N / (build_s + np.median(times)):.3f} keyframes/s | {smi}")
+    return counts
+
+
+def _solver_entry_points():
+    """(file, name) of the solver entry points a windowed run calls: a
+    synchronizing call made while one of them is on the stack fails."""
+    return {(Path(inspect.getsourcefile(m)).resolve(), name)
+            for m, names in ((vio, ("solve_vio", "vio_marginalize_device",
+                                    "vio_reduced_hessian")),
+                             (ba, ("solve_ba", "ba_reduced_hessian")))
+            for name in names}
+
+
+def _sites(counter):
+    return ", ".join(f"{Path(k).name} x{v}"
+                     for k, v in sorted(counter.items())) or "none"
+
+
+def _windowed_launches(iters, n_marg):
+    """Per dense LM iteration: 1 G/A build, the reduces of Hll, bl and
+    back-substitution, schur_rhs's broadcast; per Schur complement
+    (``vio_marginalize_device``, ``vio_reduced_hessian`` or
+    ``ba_reduced_hessian``): 1 G/A, the reduces of Hll and bl, 1
+    broadcast."""
+    return dict(segmm_g_a=iters + n_marg, seg_reduce=3 * iters + 2 * n_marg,
+                seg_broadcast=iters + n_marg, hamming_top2=0,
+                hamming_table=0)
+
+
+def _solver_checked(what, fn, n_marg_of, sync_debug=True):
+    """Drive ``fn`` (a windowed solve returning its report last) with the
+    launch counts set to 0 and, with ``sync_debug``, PyTorch's sync debug
+    mode on (it slows each LM iteration by a third to a half); check the
+    launches against the code's (``n_marg_of(report)`` complements) and
+    that no solver entry point synchronized outside ``torch.linalg``."""
+    reset_launches()
+    if sync_debug:
+        out, inside, host = _sync_free(fn, _solver_entry_points())
+    else:
+        out, inside, host = fn(), None, None
+    counts = launch_counts()
+    rep = out[-1]
+    iters = sum(rep["window_iterations"])
+    want = _windowed_launches(iters, n_marg_of(rep))
+    check(counts == want, f"{what}: launches {counts} in {iters} LM "
+          f"iterations, expected {want}")
+    stray = sorted(set(inside or ()) - _schur_linalg_sites())
+    check(not stray, f"{what}: synchronizing calls inside the solvers "
+          f"outside torch.linalg: {stray}")
+    return out, counts, inside, host
+
+
+def _vio_marg_count(rep):
+    """Complements a windowed VIO run made: every solved window but the
+    last of a pass (marginalization mode), plus the host fallbacks."""
+    if rep["mode"] != "marginalize":
+        return 0
+    solved = len(rep["window_iterations"])
+    return solved - solved // rep["num_windows"] + rep["marg_host_fallbacks"]
+
+
+def _write_sequence(root, sim, name):
+    """Write ``sim`` with ``bench_windowed.write_sequence`` (the port's
+    generator on a CPU ``torch.Generator``: the directory a machine without
+    a card writes too); its hashes must be those of the directory the JAX
+    package's ATE was read on."""
+    gen_s, hashes = bench_windowed.write_sequence(root, sim)
+    hashes = tuple(hashes[f] for f in ("imu0/data.csv", "cam0/tracks.csv"))
+    print(f"{name}: sequence written in {gen_s:.3f} s (CPU generator, seed "
+          f"{bench_windowed.SEED}): sha256 imu0/data.csv {hashes[0]}, "
+          f"cam0/tracks.csv {hashes[1]}")
+    check(hashes == SEQUENCE_SHA256[name], f"{name}: the sequence is not "
+          f"the directory the JAX package's ATE was read on (sha256 "
+          f"{SEQUENCE_SHA256[name]})")
+    return gen_s
+
+
+def _windowed_run(root, wp, device, stop=None):
+    return windowed_vio.run_euroc_vio_windowed(
+        root, euroc_vio.EurocVIOParams(), wp, device=device,
+        stop_after_windows=stop)
+
+
+def _check_dense(what, rep):
+    cfg = euroc_vio.default_vio_config(euroc_vio.EurocVIOParams())
+    check(ba._use_dense_schur(cfg, rep["window"], 15, 6,
+                              rep["num_landmarks_padded"], 4, None),
+          f"{what}: the windows do not take the dense path "
+          f"(W {rep['window']}, M {rep['num_landmarks_padded']})")
+
+
+def _rates(rep):
+    return (f"solve {rep['solve_keyframes_per_s']:.3f} keyframes/s, "
+            f"sequence {rep['sequence_keyframes_per_s']:.3f} keyframes/s, "
+            f"solve {rep['solve_seconds']:.3f} s, marginalization "
+            f"{rep['marginalization_seconds']:.3f} s, "
+            f"marg_host_fallbacks {rep['marg_host_fallbacks']}")
+
+
+def _card_vs_cpu(what, root, wp, card):
+    """``card``, the (estimate, report) of the first 2 windows of ``wp`` on
+    the card, against the same on this machine's CPU through the plain
+    versions: the same Hessian dtype, no host fallback, window costs within
+    rtol 1e-4 and keyframe positions within 1 mm."""
+    est, rep = card
+    t0 = time.perf_counter()
+    est_c, rep_c = _windowed_run(root, wp, torch.device("cpu"), 2)
+    cpu_s = time.perf_counter() - t0
+    check(rep["hessian_dtype"] == rep_c["hessian_dtype"],
+          f"{what}: hessian_dtype {rep['hessian_dtype']} on the card, "
+          f"{rep_c['hessian_dtype']} on the CPU")
+    check(rep["marg_host_fallbacks"] == 0, f"{what}: "
+          f"{rep['marg_host_fallbacks']} complements of the first 2 windows "
+          f"fell back to the host")
+    c_card = np.asarray(rep["window_final_costs"])
+    c_cpu = np.asarray(rep_c["window_final_costs"])
+    rel = float(np.abs(c_card / c_cpu - 1).max())
+    dp = float((est.poses.t - est_c.poses.t).abs().max())
+    check(rel <= 1e-4 and dp <= 1e-3, f"{what}: first 2 windows' costs "
+          f"{c_card} on the card vs {c_cpu} on the CPU, positions within "
+          f"{dp} m")
+    print(f"{what}: first 2 windows, card vs this machine's CPU (plain "
+          f"versions, hessian_dtype {rep['hessian_dtype']}, {cpu_s:.3f} s): "
+          f"costs {' '.join(f'{c:.6e}' for c in c_card)} vs "
+          f"{' '.join(f'{c:.6e}' for c in c_cpu)}, relative difference "
+          f"{rel:.3e} (rtol 1e-4), positions within {dp:.3e} m (bound 1e-3 "
+          f"m); iterations {rep['window_iterations']} vs "
+          f"{rep_c['window_iterations']}")
+
+
+def phase_windowed(dev, smi):
+    wp, wf = bench_windowed.LONG_WINDOWS, bench_windowed.LONG_FREEZE
+    with tempfile.TemporaryDirectory(prefix="euroc_long_") as root:
+        _write_sequence(root, WINDOWED_SIM, "windowed")
+        # the rates come from runs without sync debug mode
+        (_, rep), counts, _, _ = _solver_checked(
+            "windowed", lambda: _windowed_run(root, wp, dev), _vio_marg_count,
+            sync_debug=False)
+        (_, rep_f), counts_f, _, _ = _solver_checked(
+            "windowed freeze", lambda: _windowed_run(root, wf, dev),
+            _vio_marg_count, sync_debug=False)
+        # sync debug mode over the first 2 windows, which are also held
+        # against the CPU
+        two, counts2, inside, host = _solver_checked(
+            "windowed 2 windows", lambda: _windowed_run(root, wp, dev, 2),
+            _vio_marg_count)
+        _card_vs_cpu("windowed", root, wp, two)
+    for what, r in (("2-pass", rep), ("freeze", rep_f)):
+        _check_dense(f"windowed {what}", r)
+        costs = np.asarray(r["window_final_costs"])
+        check(np.isfinite(costs).all(), f"windowed {what}: costs {costs}")
+    check(rep["marg_host_fallbacks"] == 0,
+          f"windowed: {rep['marg_host_fallbacks']} complements fell back to "
+          f"the host")
+    ate, ate_f = rep["ate_rmse"], rep_f["ate_rmse"]
+    check(ate < ate_f and ate < WINDOWED_ATE_BOUND_M,
+          f"windowed: 2-pass ATE {ate} m, freeze {ate_f} m, bound "
+          f"{WINDOWED_ATE_BOUND_M} m")
+    iters = sum(rep["window_iterations"])
+    print(f"windowed: bench.py's euroc_long in full: {rep['num_keyframes']} "
+          f"keyframes, {rep['num_windows']} windows of {rep['window']} "
+          f"(overlap {rep['overlap']}), 2 passes, f32 (hessian_dtype "
+          f"{rep['hessian_dtype']}), {rep['num_landmarks_padded']} landmark "
+          f"slots a window | {smi}")
+    print(f"windowed: {counts['segmm_g_a']} G/A, {counts['seg_reduce']} "
+          f"reduce and {counts['seg_broadcast']} broadcast launches in "
+          f"{iters} LM iterations and {_vio_marg_count(rep)} device "
+          f"complements (as worked out from the code; freeze: "
+          f"{counts_f['segmm_g_a']}/{counts_f['seg_reduce']}/"
+          f"{counts_f['seg_broadcast']} in "
+          f"{sum(rep_f['window_iterations'])} iterations; the first 2 "
+          f"windows: {counts2['segmm_g_a']}/{counts2['seg_reduce']}/"
+          f"{counts2['seg_broadcast']} in "
+          f"{sum(two[1]['window_iterations'])} iterations and "
+          f"{_vio_marg_count(two[1])} complements); "
+          f"synchronizing calls over those 2 windows (sync debug mode) "
+          f"inside the solvers: {_sites(inside)}; in the host loop: "
+          f"{_sites(host)}")
+    jax = JAX_WINDOWED_ATE
+    print(f"windowed: ATE 2-pass {ate:.6f} m, freeze {ate_f:.6f} m (bound "
+          f"{WINDOWED_ATE_BOUND_M} m; the JAX package on this directory: "
+          f"{jax['marginalize_2pass']} and {jax['freeze']} m), RPE "
+          f"{rep['rpe_trans_rmse']:.6f} m; 2-pass {_rates(rep)}; freeze "
+          f"{_rates(rep_f)} | {smi}")
+    return counts
+
+
+def phase_mh01_scale(dev, smi):
+    wp = bench_windowed.MH01_WINDOWS
+    with tempfile.TemporaryDirectory(prefix="euroc_mh01_") as root:
+        _write_sequence(root, MH01_SIM, "mh01_scale")
+        (_, rep), counts, inside, host = _solver_checked(
+            "mh01_scale", lambda: _windowed_run(root, wp, dev),
+            _vio_marg_count)
+        two, counts2, _, _ = _solver_checked(
+            "mh01_scale 2 windows", lambda: _windowed_run(root, wp, dev, 2),
+            _vio_marg_count, sync_debug=False)
+        _card_vs_cpu("mh01_scale", root, wp, two)
+    _check_dense("mh01_scale", rep)
+    costs = np.asarray(rep["window_final_costs"])
+    check(np.isfinite(costs).all(), f"mh01_scale: costs {costs}")
+    check(rep["hessian_dtype"] == "float64", f"mh01_scale: hessian_dtype "
+          f"{rep['hessian_dtype']}, the stiffness gate did not widen")
+    check(rep["marg_host_fallbacks"] == 0, f"mh01_scale: "
+          f"{rep['marg_host_fallbacks']} complements fell back to the host")
+    ate = rep["ate_rmse"]
+    check(ate <= 1.5 * JAX_MH01_ATE + 1e-3, f"mh01_scale: ATE {ate} m, the "
+          f"JAX package's {JAX_MH01_ATE} m on this directory")
+    print(f"mh01_scale: bench.py's euroc_mh01_scale at its widths, cut to "
+          f"{MH01_SIM.duration:g} s: {rep['num_keyframes']} keyframes, "
+          f"{rep['num_windows']} windows of {rep['window']} (overlap "
+          f"{rep['overlap']}), f32 with hessian_dtype "
+          f"{rep['hessian_dtype']}; {counts['segmm_g_a']} G/A, "
+          f"{counts['seg_reduce']} reduce and {counts['seg_broadcast']} "
+          f"broadcast launches in {sum(rep['window_iterations'])} LM "
+          f"iterations and {_vio_marg_count(rep)} device complements (as "
+          f"worked out from the code; the first 2 windows: "
+          f"{counts2['segmm_g_a']}/{counts2['seg_reduce']}/"
+          f"{counts2['seg_broadcast']} in "
+          f"{sum(two[1]['window_iterations'])} iterations and "
+          f"{_vio_marg_count(two[1])} complements); synchronizing calls "
+          f"inside the solvers: {_sites(inside)}; in the host loop: "
+          f"{_sites(host)}")
+    print(f"mh01_scale: ATE {ate:.6f} m (the JAX package on this directory: "
+          f"{JAX_MH01_ATE} m; bound 1.5x + 1 mm), RPE "
+          f"{rep['rpe_trans_rmse']:.6f} m; under sync debug mode: "
+          f"{_rates(rep)} | {smi}")
+    return counts
+
+
+def _wba_run(c, frames, wp, cfg, device):
+    def bank(cls, fields):
+        return cls(**{k: torch.as_tensor(v).to(device)
+                      for k, v in fields.items()})
+
+    return windowed_ba.solve_ba_windowed(
+        c["K"], c["tracks"], frames, c["q_init"], c["p_init"],
+        between=bank(BetweenBank, c["between"]),
+        priors=bank(PriorBank, c["priors"]), wparams=wp, cfg=cfg,
+        device=device)
+
+
+def phase_windowed_ba(dev, smi):
+    c = bench_problem.windowed_ba_circle()
+    N = c["num_frames"]
+    wp = windowed_ba.WindowedBAParams(window=60, overlap=10)
+    cfg = ba.BAConfig(max_iterations=40, cg_max_iters=150, huber_delta=3.0)
+    (q, p, rep), counts, inside, host = _solver_checked(
+        "windowed_ba", lambda: _wba_run(c, N, wp, cfg, dev),
+        lambda r: r["num_windows"] - 1)
+    pos = float(np.linalg.norm(p - c["p_gt"], axis=-1).max())
+    rot = float(so3.rotation_distance(torch.as_tensor(q),
+                                      torch.as_tensor(c["q_gt"])).max())
+    costs = np.asarray(rep["window_final_costs"])
+    check(np.isfinite(costs).all() and pos < WBA_POS_BOUND_M
+          and rot < WBA_ROT_BOUND_RAD, f"windowed_ba: costs {costs}, "
+          f"position error {pos} m, rotation error {rot} rad")
+    # card against CPU: the first two windows' frames; the CPU takes the
+    # card's explicit-S PCG ("auto" picks it only on a CUDA device)
+    two = wp.window + (wp.window - wp.overlap)
+    (_, p2, rep2), _, _, _ = _solver_checked(
+        "windowed_ba 2 windows", lambda: _wba_run(c, two, wp, cfg, dev),
+        lambda r: r["num_windows"] - 1)
+    t0 = time.perf_counter()
+    _, p_c, rep_c = _wba_run(c, two, wp, dataclasses.replace(
+        cfg, explicit_s="always"), torch.device("cpu"))
+    cpu_s = time.perf_counter() - t0
+    c_card = np.asarray(rep2["window_final_costs"])
+    c_cpu = np.asarray(rep_c["window_final_costs"])
+    rel = float(np.abs(c_card / c_cpu - 1).max())
+    dp = float(np.abs(p2 - p_c).max())
+    check(rel <= 1e-4 and dp <= 1e-3, f"windowed_ba: first 2 windows' costs "
+          f"{c_card} on the card vs {c_cpu} on the CPU, positions within "
+          f"{dp} m")
+    iters = sum(rep["window_iterations"])
+    print(f"windowed_ba: the JAX package's test circle (VoSimParams("
+          f"nb_landmarks=120, steps=2000, fx=fy=200, hz=10), numpy seeds 0 "
+          f"and 1): {N} frames, {len(c['tracks'])} observations, "
+          f"{rep['num_windows']} windows of {rep['window']} (overlap "
+          f"{rep['overlap']}), f32; {counts['segmm_g_a']} G/A, "
+          f"{counts['seg_reduce']} reduce and {counts['seg_broadcast']} "
+          f"broadcast launches in {iters} LM iterations and "
+          f"{rep['num_windows'] - 1} reduced Hessians (explicit-S PCG, as "
+          f"worked out from the code); synchronizing calls inside the "
+          f"solvers: {_sites(inside)}; in the host loop: {_sites(host)}")
+    print(f"windowed_ba: position error max {pos:.6f} m (bound "
+          f"{WBA_POS_BOUND_M}), rotation error max {rot:.6f} rad (bound "
+          f"{WBA_ROT_BOUND_RAD}); under sync debug mode: solve "
+          f"{rep['solve_seconds']:.3f} s "
+          f"({N * rep['passes'] / rep['solve_seconds']:.3f} frames/s), "
+          f"marginalization {rep['marginalization_seconds']:.3f} s; first 2 "
+          f"windows card vs CPU ({cpu_s:.3f} s): costs "
+          f"{' '.join(f'{x:.6e}' for x in c_card)} vs "
+          f"{' '.join(f'{x:.6e}' for x in c_cpu)}, relative {rel:.3e} (rtol "
+          f"1e-4), positions within {dp:.3e} m (bound 1e-3 m) | {smi}")
     return counts
 
 
@@ -1315,22 +1696,15 @@ def _frame_layers(frames, dev, smi):
 
 def _sync_sites(state, img, dev):
     """Synchronizing calls that PyTorch's sync debug mode sees in one frame
-    step, as {file:line: count}."""
+    step, as {file name:line: count}."""
     params = visual_frontend.FrontendParams()
     gen = torch.Generator(device=dev).manual_seed(1)
-    torch.cuda.synchronize()
-    with warnings.catch_warnings(record=True) as caught:
-        warnings.simplefilter("always")
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
-            visual_frontend._frontend_step(state, img, 1.0, gen, params)
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
-    torch.cuda.synchronize()
-    return collections.Counter(
-        f"{Path(w.filename).name}:{w.lineno}" for w in caught
-        if "called a synchronizing CUDA operation" in str(w.message)
-    )
+    _, syncs = _sync_free(lambda: visual_frontend._frontend_step(
+        state, img, 1.0, gen, params))
+    sites = collections.Counter()
+    for k, v in syncs.items():
+        sites[Path(k).name] += v
+    return sites
 
 
 def phase_sequence(frames, dev, smi):
@@ -1396,6 +1770,7 @@ def _kernel_entry(name, source, replaces, n_launches, stats):
 
 
 def main():
+    t_start = time.perf_counter()
     name, smi, popc_rate = phase_device()
     phase_build()
     dev = torch.device("cuda:0")
@@ -1413,6 +1788,9 @@ def main():
     del problem, state
     phase_vio(dev, smi)
     phase_euroc(dev, smi)
+    phase_windowed(dev, smi)
+    phase_mh01_scale(dev, smi)
+    phase_windowed_ba(dev, smi)
     t0 = time.perf_counter()
     frames = bench_frontend.make_euroc_frames()
     check(frames.shape == (SEQUENCE_FRAMES, 480, 752),
@@ -1422,6 +1800,8 @@ def main():
     ham = phase_hamming(frames, dev, smi, popc_rate)
     table_launches = phase_pair(dev, smi)
     top2_launches = phase_sequence(frames, dev, smi)
+    print(f"chip_smoke: every phase passed in "
+          f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [
         _kernel_entry("segmm_g_a", KERNEL_SOURCE, KERNEL_REPLACES,
                       ga_launches, g_a),

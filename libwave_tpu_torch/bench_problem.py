@@ -496,3 +496,58 @@ def bench_vio(problem, init, solver="auto", repeats=3):
         dt, cost = run_once()
         times.append(dt)
     return init.q.shape[0] / _median(times), cost
+
+
+def windowed_ba_circle(params: VoSimParams = VoSimParams(
+        nb_landmarks=120, steps=2000, fx=200.0, fy=200.0, hz=10.0),
+        seed: int = 0):
+    """The synthetic circle of the JAX package's windowed-BA test
+    (``tests/test_windowed_ba.py:48-104``) as host f64 arrays made from
+    seeds: landmarks of ``seed`` (numpy, :func:`draw_landmarks`), 1 px of
+    pixel noise, odometry between-factors with 1e-2 rad and m of noise
+    (sqrt-information 1e2), priors on the first two camera poses and the
+    init offset by (-0.02, 0.02, 0.02) rad and (0.02, -0.03, 0.05) m in
+    each camera's frame; every draw from ``numpy.random.default_rng(seed +
+    1)``. Returns a dict: ``K``, ``tracks`` ((frame, id, u, v) rows),
+    ``num_frames``, ``q_init``, ``p_init``, ``between`` and ``priors``
+    (dicts of the bank fields), ``q_gt``, ``p_gt`` (camera poses)."""
+    from libwave_tpu_torch.sim.vo_dataset import q_BC
+
+    ds = generate_vo_dataset(params, seed=seed, device="cpu")
+    frames = np.nonzero(ds.frame_has_obs.numpy())[0]
+    N = len(frames)
+    q_gt = so3.quat_multiply(ds.robot_q_GB[frames],
+                             q_BC(torch.float64, "cpu").expand(N, 4)).numpy()
+    p_gt = ds.robot_p_GB.numpy()[frames]
+    vis = ds.visible.numpy()[frames]
+    px = ds.pixels.numpy()[frames]
+    fr, lm = np.nonzero(vis)
+    tracks = np.stack([fr, lm, px[fr, lm, 0], px[fr, lm, 1]],
+                      axis=1).astype(np.float64)
+    rng = np.random.default_rng(seed + 1)
+    tracks[:, 2:] += rng.standard_normal((len(tracks), 2))
+
+    def exp_q(v):
+        return so3.exp_quat(torch.as_tensor(v)).numpy()
+
+    # odometry: the true relative poses, each perturbed by its own sigmas
+    i = np.arange(N - 1)
+    qi_inv = q_gt[i] * np.array([1.0, -1.0, -1.0, -1.0])
+    dq = _quat_multiply_np(_quat_multiply_np(qi_inv, q_gt[i + 1]),
+                           exp_q(1e-2 * rng.standard_normal((N - 1, 3))))
+    dp = np.einsum("nji,nj->ni", so3.quat_to_rot(torch.as_tensor(q_gt[i]))
+                   .numpy(), p_gt[i + 1] - p_gt[i])
+    dp = dp + 1e-2 * rng.standard_normal((N - 1, 3))
+    between = dict(i=i.astype(np.int32), j=(i + 1).astype(np.int32), dq=dq,
+                   dp=dp, sqrt_info=np.full((N - 1, 6), 1e2))
+    priors = dict(i=np.array([0, 1], np.int32), q=q_gt[:2], p=p_gt[:2],
+                  sqrt_info=np.concatenate([np.full((2, 3), 1e5),
+                                            np.full((2, 3), 1e6)], axis=-1))
+    off_q = exp_q(np.array([-0.02, 0.02, 0.02]))
+    q_init = _quat_multiply_np(q_gt, np.broadcast_to(off_q, (N, 4)))
+    off_p = np.array([0.02, -0.03, 0.05])
+    p_init = p_gt + np.einsum(
+        "nij,j->ni", so3.quat_to_rot(torch.as_tensor(q_gt)).numpy(), off_p)
+    return dict(K=ds.camera_K.numpy(), tracks=tracks, num_frames=N,
+                q_init=q_init, p_init=p_init, between=between,
+                priors=priors, q_gt=q_gt, p_gt=p_gt)

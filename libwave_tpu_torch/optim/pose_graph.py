@@ -8,8 +8,9 @@ perturbation):
                               R_i^T (p_j - p_i) - p_meas ] * sqrt_info
   prior(i; meas):       r = [ log(q_meas⁻¹ ⊗ q_i),  p_i - p_meas ] * sqrt_info
 
-Jacobians come from forward-mode autodiff (``torch.func.jacfwd``) over the
-boxplus-perturbed residual, batched over the bank with ``torch.func.vmap``.
+Jacobians come from forward-mode autodiff over the boxplus-perturbed
+residual of the whole bank: one ``torch.func.jvp`` per tangent direction,
+the directions batched with ``torch.func.vmap``, in the bank's dtype.
 """
 
 from __future__ import annotations
@@ -17,7 +18,7 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
-from torch.func import jacfwd, vmap
+from torch.func import vmap
 
 from libwave_tpu_torch.geometry import so3
 
@@ -87,44 +88,54 @@ def _prior_residual(qi, pi, q0, p0, sqrt_info):
     return torch.cat([r_rot, pi - p0], dim=-1) * sqrt_info
 
 
+def _bank_jacobians(res, F, n_args, like):
+    """A bank residual ``res(*xis)`` (each xi (F, 6)) at zero and its
+    Jacobians wrt each argument, (F, 6, 6) apiece: one ``jvp`` of the whole
+    bank per tangent direction, the directions under ``vmap`` (as
+    ``pipelines.vio._imu_linearize``). Per-factor ``vmap(jacfwd(...))``
+    would run the residual on 0-d tensors, where forward AD gives float64
+    tangents to float32 operands."""
+    n = 6 * n_args
+    z = like.new_zeros((F, 6))
+    basis = torch.eye(n, dtype=like.dtype, device=like.device)[:, None, :]
+
+    def column(t):
+        return torch.func.jvp(
+            res, (z,) * n_args,
+            tuple(t[:, 6 * a:6 * (a + 1)] for a in range(n_args)))[1]
+
+    J = vmap(column)(basis.expand(n, F, n)).permute(1, 2, 0)  # (F, 6, n)
+    return (res(*(z,) * n_args),
+            *(J[..., 6 * a:6 * (a + 1)] for a in range(n_args)))
+
+
 def linearize_between(bank: BetweenBank, q, p):
     """Returns (r (F,6), Ji (F,6,6), Jj (F,6,6)) in [omega, dp] tangent order."""
-
-    def one(qi, pi, qj, pj, dq, dp, si):
-        def res(xi_i, xi_j):
-            return _between_residual(
-                so3.quat_boxplus(qi, xi_i[0:3]),
-                pi + xi_i[3:6],
-                so3.quat_boxplus(qj, xi_j[0:3]),
-                pj + xi_j[3:6],
-                dq, dp, si,
-            )
-
-        z = torch.zeros(6, dtype=pi.dtype, device=pi.device)
-        return res(z, z), jacfwd(res, argnums=0)(z, z), jacfwd(
-            res, argnums=1
-        )(z, z)
-
     i, j = bank.i, bank.j
-    return vmap(one)(
-        q[i], p[i], q[j], p[j], bank.dq, bank.dp, bank.sqrt_info
-    )
+    qi, pi, qj, pj = q[i], p[i], q[j], p[j]
+
+    def res(xi_i, xi_j):
+        return _between_residual(
+            so3.quat_boxplus(qi, xi_i[:, 0:3]), pi + xi_i[:, 3:6],
+            so3.quat_boxplus(qj, xi_j[:, 0:3]), pj + xi_j[:, 3:6],
+            bank.dq, bank.dp, bank.sqrt_info,
+        )
+
+    return _bank_jacobians(res, i.shape[0], 2, p)
 
 
 def linearize_prior(bank: PriorBank, q, p):
     """Returns (r (P,6), J (P,6,6))."""
-
-    def one(qi, pi, q0, p0, si):
-        def res(xi):
-            return _prior_residual(
-                so3.quat_boxplus(qi, xi[0:3]), pi + xi[3:6], q0, p0, si
-            )
-
-        z = torch.zeros(6, dtype=pi.dtype, device=pi.device)
-        return res(z), jacfwd(res)(z)
-
     i = bank.i
-    return vmap(one)(q[i], p[i], bank.q, bank.p, bank.sqrt_info)
+    qi, pi = q[i], p[i]
+
+    def res(xi):
+        return _prior_residual(
+            so3.quat_boxplus(qi, xi[:, 0:3]), pi + xi[:, 3:6], bank.q,
+            bank.p, bank.sqrt_info,
+        )
+
+    return _bank_jacobians(res, i.shape[0], 1, p)
 
 
 def pose_graph_cost(q, p, between: BetweenBank | None,

@@ -1,5 +1,5 @@
 """End-to-end pipelines (port of ``libwave_tpu.pipelines``' visual front
-end, VIO and EuRoC VIO)."""
+end, VIO, EuRoC VIO and the windowed VIO and BA solvers)."""
 
 from libwave_tpu_torch.pipelines.euroc_vio import (  # noqa: F401
     EurocVIOParams,
@@ -18,6 +18,14 @@ from libwave_tpu_torch.pipelines.vio import (  # noqa: F401
     vio_from_sim,
     vio_marginalize_device,
     vio_reduced_hessian,
+)
+from libwave_tpu_torch.pipelines.windowed_vio import (  # noqa: F401
+    WindowedVIOParams,
+    run_euroc_vio_windowed,
+)
+from libwave_tpu_torch.pipelines.windowed_ba import (  # noqa: F401
+    WindowedBAParams,
+    solve_ba_windowed,
 )
 from libwave_tpu_torch.pipelines.visual_frontend import (  # noqa: F401
     FrontendParams,

@@ -227,7 +227,9 @@ def _prior_delta(problem: VIOProblem, state: VIOState) -> torch.Tensor:
 
 
 def _prior_cost(problem: VIOProblem, state: VIOState) -> torch.Tensor:
-    d = _prior_delta(problem, state)
+    # a prior wider than the state (the stiff chain's f64 prior on an f32
+    # state) takes the delta in its dtype, as JAX's promotion does
+    d = _prior_delta(problem, state).to(problem.prior_Lambda.dtype)
     c = 0.5 * (d @ (problem.prior_Lambda @ d))
     if problem.prior_b is not None:
         c = c - problem.prior_b @ d
@@ -245,7 +247,7 @@ def _prior_terms(problem: VIOProblem, state: VIOState):
     diag = Lam4[ar, :, ar, :]  # (O, D, D)
     iu, ju = torch.triu_indices(O, O, offset=1, device=dev)
     C = Lam4[iu, :, ju, :]
-    d = _prior_delta(problem, state)
+    d = _prior_delta(problem, state).to(problem.prior_Lambda.dtype)
     g = -(problem.prior_Lambda @ d)
     if problem.prior_b is not None:
         g = g + problem.prior_b

@@ -562,3 +562,91 @@ def test_small_euroc_vio_through_kernels(cuda_device, tmp_path):
     print(f"card vs CPU: final cost relative difference {rel:.3e}, keyframe "
           f"positions within {dp:.3e} m")
     assert rel <= 1e-3 and dp <= 1e-3, (rel, dp)
+
+
+@pytest.mark.cuda
+def test_small_windowed_vio_through_kernels(cuda_device, tmp_path):
+    """A 40 s sequence at 5 Hz (201 keyframes, 200 landmarks, written with
+    a CPU generator) through the windowed solver at euroc_long's ``window=
+    80, overlap=10``: 3 windows of one 36-iteration chunk each, f32, the
+    Schur complements on the card. Launches: 1 G/A, 3 reduces, 1 broadcast
+    per LM iteration and 1, 2, 1 per complement (2 of them). The same run
+    on the CPU through the plain versions: window costs within rtol 1e-4
+    and keyframe positions within 1 mm, chip_smoke.py's bounds for the
+    first windows of euroc_long (this problem's own f32 and f64 CPU solves
+    part by 4.2e-6 and 6.8e-5 m). One chunk a window, so the chunk stop
+    rule cannot stop the two at different iterations. Windows of 20
+    keyframes were tried first: their f32 solves follow the rounding
+    (card and CPU parted by 9.9e-4 in cost and 2.2 cm, the CPU's own f32
+    and f64 solves by 2.1e-4 and 6.6 mm)."""
+    from libwave_tpu_torch.pipelines import euroc_vio, windowed_vio
+    from libwave_tpu_torch.sim import euroc_sim
+
+    root = str(tmp_path)
+    euroc_sim.generate_euroc_sequence(
+        root, euroc_sim.EurocSimParams(duration=40.0, cam_hz=5.0,
+                                       nb_landmarks=200),
+        seed=0, device="cpu")
+    params = euroc_vio.EurocVIOParams()
+    wp = windowed_vio.WindowedVIOParams(window=80, overlap=10,
+                                        solve_iters_chunk=36,
+                                        solve_chunks_max=1)
+    out = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        before = _launches()
+        est, rep = windowed_vio.run_euroc_vio_windowed(root, params, wp,
+                                                       device=dev)
+        out[dev.type] = (est, rep, tuple(
+            a - b for a, b in zip(_launches(), before)))
+    (est, rep, grew), (est_c, rep_c, grew_c) = out["cuda"], out["cpu"]
+    it = sum(rep["window_iterations"])
+    assert rep["num_windows"] == 3 and rep["marg_host_fallbacks"] == 0
+    assert rep["window_iterations"] == rep_c["window_iterations"] == [36] * 3
+    assert grew == (it + 2, 3 * it + 4, it + 2) and grew_c == (0, 0, 0)
+    costs, costs_c = (np.asarray(r["window_final_costs"])
+                      for r in (rep, rep_c))
+    dp = float((est.poses.t - est_c.poses.t).abs().max())
+    print(f"card vs CPU: window costs within "
+          f"{np.abs(costs / costs_c - 1).max():.3e}, positions within "
+          f"{dp:.3e} m; iterations {rep['window_iterations']} vs "
+          f"{rep_c['window_iterations']}")
+    np.testing.assert_allclose(costs, costs_c, rtol=1e-4)
+    assert dp <= 1e-3 and rep["ate_rmse"] < 0.05
+
+
+@pytest.mark.cuda
+def test_small_windowed_ba_through_kernels(cuda_device):
+    """``bench_problem.windowed_ba_circle`` at 400 steps (36 frames, 60
+    landmarks) through ``solve_ba_windowed`` at ``window=15, overlap=4``
+    (3 windows of 10 LM iterations, explicit-S PCG, f32): 1 G/A, 3
+    reduces, 1 broadcast per iteration and 1, 2, 1 per reduced Hessian (2).
+    The same on the CPU through the plain versions with explicit S forced
+    (the card's "auto" choice): window costs within rtol 1e-4, positions
+    within 1 mm."""
+    from libwave_tpu_torch.optim.pose_graph import BetweenBank, PriorBank
+    from libwave_tpu_torch.pipelines import windowed_ba
+
+    c = bench_problem.windowed_ba_circle(vo_dataset.VoSimParams(
+        nb_landmarks=60, steps=400, fx=200.0, fy=200.0, hz=10.0))
+    cfg = ba.BAConfig(max_iterations=10, cg_max_iters=150, huber_delta=3.0)
+    out = {}
+    for dev, cf in ((cuda_device, cfg), (torch.device("cpu"),
+                    dataclasses.replace(cfg, explicit_s="always"))):
+        before = _launches()
+        q, p, rep = windowed_ba.solve_ba_windowed(
+            c["K"], c["tracks"], c["num_frames"], c["q_init"], c["p_init"],
+            between=BetweenBank(**{k: torch.as_tensor(v, device=dev)
+                                   for k, v in c["between"].items()}),
+            priors=PriorBank(**{k: torch.as_tensor(v, device=dev)
+                                for k, v in c["priors"].items()}),
+            wparams=windowed_ba.WindowedBAParams(window=15, overlap=4),
+            cfg=cf, device=dev)
+        out[dev.type] = (p, rep, tuple(
+            a - b for a, b in zip(_launches(), before)))
+    (p, rep, grew), (p_c, rep_c, grew_c) = out["cuda"], out["cpu"]
+    assert rep["num_windows"] == 3
+    assert grew == (32, 94, 32) and grew_c == (0, 0, 0)
+    np.testing.assert_allclose(rep["window_final_costs"],
+                               rep_c["window_final_costs"], rtol=1e-4)
+    assert float(np.abs(p - p_c).max()) <= 1e-3
+    assert float(np.linalg.norm(p - c["p_gt"], axis=-1).max()) < 0.1

@@ -40,7 +40,9 @@ for new in ("ops.hamming", "vision.matcher", "vision.tracker",
             "kinematics.two_wheel", "vision.camera", "sim.vo_dataset",
             "pipelines.vio", "utils.device", "launch_count",
             "datasets.euroc", "sim.euroc_sim", "optim.marginalization",
-            "pipelines.euroc_vio", "bench_designs"):
+            "pipelines.euroc_vio", "bench_designs", "utils.checkpoint",
+            "pipelines.windowed_vio", "pipelines.windowed_ba",
+            "bench_windowed"):
     assert "libwave_tpu_torch." + new in names, new
 print("imported", len(names), "modules")
 """
@@ -58,8 +60,9 @@ def test_port_and_chip_smoke_import_without_jax():
     proc = _run(["-c", IMPORT_ALL])
     assert proc.returncode == 0, proc.stderr
     count = int(proc.stdout.split()[1])
-    # the back end's, the front end's, VIO's and EuRoC VIO's modules
-    assert count >= 43
+    # the back end's, the front end's, VIO's, EuRoC VIO's and the windowed
+    # solvers' modules
+    assert count >= 47
 
 
 def test_chip_smoke_fails_without_cuda():

@@ -88,3 +88,40 @@ def test_linearize_between_and_prior(trajectory, rng):
           jpg.pose_graph_cost(jnp.asarray(q2), jnp.asarray(p2), bank_j, pj))
     assert float(tpg.pose_graph_cost(torch.as_tensor(q), torch.as_tensor(p),
                                      bank_t, None)) < 1e-20
+
+
+def test_linearize_in_f32(trajectory, rng):
+    """Banks and poses in f32 linearize in f32, as the JAX package's do
+    (the windowed BA solves f32 banks on the card). Both sides round
+    differently, so the tolerance is f32's: rtol 1e-4, atol 1e-5 *
+    max|x| (measured ~1e-6)."""
+    q, p = trajectory
+    q2, p2 = _perturbed(trajectory, rng)
+    f32 = np.float32
+    bank_j = jpg.between_from_trajectory(jnp.asarray(q, f32),
+                                         jnp.asarray(p, f32), 1e-2, 1e-3)
+    bank_t = tpg.between_from_trajectory(torch.as_tensor(q, dtype=torch.float32),
+                                         torch.as_tensor(p, dtype=torch.float32),
+                                         1e-2, 1e-3)
+    idx = np.array([0, 4, 8], dtype=np.int32)
+    si = (np.abs(rng.normal(size=(3, 6))) + 0.5).astype(f32)
+    pj = jpg.PriorBank(i=jnp.asarray(idx), q=jnp.asarray(q[idx], f32),
+                       p=jnp.asarray(p[idx], f32), sqrt_info=jnp.asarray(si))
+    pt = tpg.PriorBank(i=torch.as_tensor(idx),
+                       q=torch.as_tensor(q[idx], dtype=torch.float32),
+                       p=torch.as_tensor(p[idx], dtype=torch.float32),
+                       sqrt_info=torch.as_tensor(si))
+    qt = torch.as_tensor(q2, dtype=torch.float32)
+    pt2 = torch.as_tensor(p2, dtype=torch.float32)
+    got = (*tpg.linearize_between(bank_t, qt, pt2),
+           *tpg.linearize_prior(pt, qt, pt2))
+    ref = (*jpg.linearize_between(bank_j, jnp.asarray(q2, f32),
+                                  jnp.asarray(p2, f32)),
+           *jpg.linearize_prior(pj, jnp.asarray(q2, f32),
+                                jnp.asarray(p2, f32)))
+    for b, a in zip(got, ref):
+        assert b.dtype == torch.float32
+        a = np.asarray(a)
+        assert a.dtype == np.float32
+        np.testing.assert_allclose(b.numpy(), a, rtol=1e-4,
+                                   atol=1e-5 * np.abs(a).max())
