@@ -126,7 +126,40 @@ it imports no JAX. Phases, each reported on its own line:
    position error under 0.1 m and rotation error under 0.05 rad (the
    reference's bounds), and its first 2 windows against the CPU's with
    explicit S (costs within rtol 1e-4, positions within 1 mm);
-12. hamming: both Hamming kernels against their plain versions on the card,
+12. icp: ``bench.py``'s icp configuration (``bench_lidar.scan_pair``: 4,096
+   points, turned 0.02 rad and moved (0.3, -0.15, 0.02) m; sha256 checked
+   against the arrays ``tests/lidar_anchors.py`` fed the JAX package) on
+   the card, f32: multiscale ICP (``ICPParams(max_iter=25,
+   multiscale_steps=2, res=0.3)``) within 1.5x + 1 mm of the JAX package's
+   translation error on the same pair, single scale under 1e-4 m, GICP
+   and NDT (the JAX package's test settings) within 1.5x + 1 mm of its
+   errors and under the reference's 0.1 (``||T_est - T_true||_F``); the
+   ICP transforms within 1e-4 of this machine's CPU's, every matcher's
+   bits equal on two card runs, no synchronizing call inside a matcher
+   outside ``torch.linalg`` (sync debug mode) and none of the five kernels
+   launched; ``bench.py``'s keys (pairs/s multiscale and single scale, the
+   numpy SVD-ICP anchor on this machine's CPU and the ratio), LUM and
+   Censi information of the multiscale result (symmetric positive
+   definite, within rtol 1e-5 of the same estimate on the CPU), the busy
+   share of one multiscale match (``torch.profiler``) and what
+   ``torch.linalg.svd`` of (1, 3, 3) and (49, 3, 3) costs and syncs;
+13. lidar_odometry: ``bench_lidar.scan_sequence(50, 4096)`` (5 s at
+   KITTI's 10 Hz; sha256 checked) through ``lidar_odometry`` on the card,
+   f32, the 49 pairs in one batch: full-resolution ICP with LUM information
+   and the pose-graph refinement (``PoseGraphConfig()``), ``bench.py``'s
+   multiscale ICP, and NDT: every pair converged, the worst position error
+   within 1.5x + 1 mm of the JAX package's on the same sequence, the same
+   bits on two runs, the first 4 pairs within 1e-4 of this machine's CPU's,
+   no synchronizing call inside a matcher or ``solve_pose_graph`` outside
+   ``torch.linalg``, none of the five kernels; pairs/s, peak allocation,
+   and the busy share of the refined run;
+14. ground: ``segment_ground`` on ``bench_lidar.ground_scene()`` (116,800
+   points, sha256 checked) at the reference's default bins (72 x 200, rmax
+   100 m), f32: ground, obstacle and drivable recall and ground precision
+   within 0.005 of the JAX package's (under ``jax.jit``) on the same
+   scene, labels equal to this machine's CPU's on at least 99.9% of
+   points, none of the five kernels; ms per scan;
+15. hamming: both Hamming kernels against their plain versions on the card,
    exactly equal (integer outputs), at the frame's 512 x 512 x 16, at an
    unaligned 300 x 700 x 8 with ties, mask zeros, an all-masked bank and a
    single live column, at ``bench_frontend.top2_edge_cases`` (ties across
@@ -142,12 +175,12 @@ it imports no JAX. Phases, each reported on its own line:
    ``torch.cdist(p=0)`` on the banks unpacked to 0/1 f32 bits, with two
    bounds: the bytes, and the bit operations at the measured .b1 rate (the
    first kernel's: the popcount issue rate);
-13. pair: ``bench.py``'s two-frame pair (480x640 blobs and their (4, 7) roll,
+16. pair: ``bench.py``'s two-frame pair (480x640 blobs and their (4, 7) roll,
    FAST-512, BRISK, knn ratio + RANSAC) on the card: one top-2 launch per
    pair, pairs/s with the kernel and with the plain top-2; then the same pair
    through the distance heuristic with cross check, one table launch per
    pair, the same matches as with the plain table;
-14. sequence: the 25 EuRoC-resolution (752x480) frames of ``bench.py``'s
+17. sequence: the 25 EuRoC-resolution (752x480) frames of ``bench.py``'s
     front-end benchmark through ``track_sequence`` with ``FrontendParams()``:
     25 top-2 launches, tracks identical to the run with the plain top-2,
     contiguous tracks of mean length >= 3, rows and ids within 10% of the JAX
@@ -174,6 +207,7 @@ import collections
 import concurrent.futures
 import contextlib
 import dataclasses
+import importlib
 import inspect
 import json
 import subprocess
@@ -192,17 +226,35 @@ import libwave_tpu_torch
 from libwave_tpu_torch import (
     bench_designs,
     bench_frontend,
+    bench_lidar,
     bench_problem,
     bench_windowed,
+    native,
 )
 from libwave_tpu_torch.ops import hamming, segmm
 from libwave_tpu_torch.benchmark import Trajectory, absolute_trajectory_error
 from libwave_tpu_torch.geometry import so3
 from libwave_tpu_torch.geometry.se3 import SE3
+from libwave_tpu_torch.matching import (
+    estimate_info_censi,
+    estimate_info_lum,
+    gicp_match,
+    icp_match,
+    ndt_match,
+    segment_ground,
+)
+from libwave_tpu_torch.matching.pointcloud import PointCloud, make_cloud
 from libwave_tpu_torch.optim import ba, schur
-from libwave_tpu_torch.optim.pose_graph import BetweenBank, PriorBank
+from libwave_tpu_torch.optim.pose_graph import (
+    BetweenBank,
+    PoseGraphConfig,
+    PriorBank,
+    solve_pose_graph,
+)
 from libwave_tpu_torch.pipelines import (
+    LidarOdometryConfig,
     euroc_vio,
+    lidar_odometry,
     vio,
     visual_frontend,
     windowed_ba,
@@ -276,6 +328,41 @@ SEQUENCE_SHA256 = {
 # gtsam_offline_example.cpp:150,155)
 WBA_POS_BOUND_M = 0.1
 WBA_ROT_BOUND_RAD = 0.05
+# The lidar phases: the JAX package's figures on bench_lidar's arrays (the
+# sha256 checked below), f32 with x64 off, on a CPU (tests/lidar_anchors.py
+# icp, odometry, ground). Errors in m.
+JAX_ICP_ERR = {"multiscale": 0.0023430006112903357,
+               "singlescale": 1.6496770172125252e-07,
+               "gicp": 1.5545874703093432e-05,
+               "ndt": 0.013194199651479721}
+JAX_ODOMETRY_ERR = {"icp_refined": 1.529524295691402e-05,
+                    "icp_multiscale": 0.17166224129209845,
+                    "ndt": 0.21223523547441853}
+# segment_ground under jax.jit: the port computes the compiled program's
+# select (ROADMAP.md C); without jit the JAX package's drivable recall
+# reads 0.952083 on the same scene
+JAX_GROUND = {"ground_recall": 0.97096875, "obstacle_recall": 0.994875,
+              "drivable_recall": 1.0,
+              "ground_precision": 0.9991639064861563}
+ICP_THRESHOLD = 0.1  # ||T_est - T_true||_F, the reference's icp_tests.cpp
+SINGLESCALE_BOUND_M = 1e-4
+# card vs this machine's CPU, f32: transforms (translation m, quaternion
+# components) of the pair and of the sequence's first 4 pairs (measured at
+# most 2.1e-5, the multiscale sequence run), and the information of one ICP
+# result on both (measured 2.3e-7 of the largest entry; NVIDIA H100 80GB
+# HBM3, 700 W, torch 2.11)
+CARD_CPU_T_TOL = 1e-4
+CARD_CPU_INFO_RTOL = 1e-5
+GROUND_SCORE_TOL = 0.005
+GROUND_AGREE = 0.999
+ODOMETRY_T = 50
+ODOMETRY_CPU_PAIRS = 4
+# the port's lidar modules: a synchronizing call made while a matcher or
+# the pose-graph solve is on the stack fails outside their torch.linalg
+# calls
+LIDAR_MODULES = tuple(importlib.import_module(f"libwave_tpu_torch.{m}") for m in (
+    "matching.pointcloud", "matching.knn", "matching.loop", "matching.icp",
+    "matching.gicp", "matching.ndt", "optim.pose_graph"))
 
 
 class SmokeFailure(RuntimeError):
@@ -914,14 +1001,17 @@ def _ate(gt, est):
     return float(absolute_trajectory_error(truth, traj)[0])
 
 
-def _schur_linalg_sites():
-    """file:line of every ``torch.linalg`` call in ``optim/schur.py``: the
-    dense solves' factorizations, the only synchronizing calls a VIO solve
-    may make."""
-    src = Path(inspect.getsourcefile(schur))
-    return {f"{src}:{i}" for i, line in
-            enumerate(src.read_text().splitlines(), 1)
-            if "torch.linalg." in line}
+def _linalg_sites(*modules):
+    """file:line of every ``torch.linalg`` call in ``modules`` (default
+    ``optim/schur.py``: the dense solves' factorizations, the only
+    synchronizing calls a VIO solve may make)."""
+    sites = set()
+    for m in modules or (schur,):
+        src = Path(inspect.getsourcefile(m))
+        sites |= {f"{src}:{i}" for i, line in
+                  enumerate(src.read_text().splitlines(), 1)
+                  if "torch.linalg." in line}
+    return sites
 
 
 def phase_vio(dev, smi):
@@ -937,7 +1027,7 @@ def phase_vio(dev, smi):
           f"landmarks, {K} observation slots (K % 4 = {K % 4}: the broadcast "
           f"takes its {'16-byte' if aligned else 'scalar'} path), f32; ATE "
           f"of the start {ate0:.6f} m")
-    linalg_sites = _schur_linalg_sites()
+    linalg_sites = _linalg_sites()
     # per LM iteration, dense: reduces of Hll, bl and back-substitution,
     # schur_rhs's broadcast, one G/A build; PCG: as the matrix-free BA
     # path, with cg_max_iters matvecs
@@ -1030,7 +1120,7 @@ def phase_euroc(dev, smi):
         counts = launch_counts()
         check(counts == want, f"euroc: launches {counts} in {it} LM "
               f"iterations, expected {want}")
-        stray = sorted(set(syncs) - _schur_linalg_sites())
+        stray = sorted(set(syncs) - _linalg_sites())
         check(not stray, f"euroc: synchronizing calls inside solve_vio "
               f"outside torch.linalg: {stray}")
         rep = euroc_vio.euroc_report(gt_traj, kf_times, init, state, info)
@@ -1125,7 +1215,7 @@ def _solver_checked(what, fn, n_marg_of, sync_debug=True):
     want = _windowed_launches(iters, n_marg_of(rep))
     check(counts == want, f"{what}: launches {counts} in {iters} LM "
           f"iterations, expected {want}")
-    stray = sorted(set(inside or ()) - _schur_linalg_sites())
+    stray = sorted(set(inside or ()) - _linalg_sites())
     check(not stray, f"{what}: synchronizing calls inside the solvers "
           f"outside torch.linalg: {stray}")
     return out, counts, inside, host
@@ -1375,6 +1465,295 @@ def phase_windowed_ba(dev, smi):
           f"{' '.join(f'{x:.6e}' for x in c_cpu)}, relative {rel:.3e} (rtol "
           f"1e-4), positions within {dp:.3e} m (bound 1e-3 m) | {smi}")
     return counts
+
+
+def _lidar_entry_points():
+    """(file, name) of the matchers and the pose-graph solve."""
+    return {(Path(inspect.getsourcefile(inspect.unwrap(fn))).resolve(),
+             fn.__name__)
+            for fn in (icp_match, gicp_match, ndt_match, solve_pose_graph)}
+
+
+def _lidar_checked(what, fn):
+    """Run ``fn`` under sync debug mode with the kernels' launch counts set
+    to 0: no synchronizing call while a matcher or the pose-graph solve is
+    on the stack outside ``torch.linalg``, and none of the package's five
+    kernels launched. Returns (result, sites inside, sites outside)."""
+    reset_launches()
+    out, inside, host = _sync_free(fn, _lidar_entry_points())
+    counts = launch_counts()
+    check(not any(counts.values()), f"{what}: the lidar path launched "
+          f"{counts}")
+    stray = sorted(set(inside) - _linalg_sites(*LIDAR_MODULES))
+    check(not stray, f"{what}: synchronizing calls inside the matchers "
+          f"outside torch.linalg: {stray}")
+    return out, inside, host
+
+
+def _lidar_data(what, key, *arrays):
+    got = tuple(bench_lidar.sha256(a) for a in arrays)
+    print(f"{what}: data sha256 {' '.join(got)}")
+    check(got == bench_lidar.SHA256[key], f"{what}: the data is not the "
+          f"arrays the JAX package's anchors were read on "
+          f"({bench_lidar.SHA256[key]})")
+
+
+def _same_bits(a, b):
+    return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def _t_diff(T, T_true):
+    """||T_est - T_true||_F, the reference's registration error."""
+    return float(torch.linalg.matrix_norm(
+        SE3(*(x.double().cpu() for x in T)).matrix() - T_true))
+
+
+def _transform_gap(T, T_cpu):
+    """Largest difference of the translations and of the quaternion
+    components of two (batched) transforms."""
+    return max(float((a.cpu() - b).abs().max()) for a, b in zip(T, T_cpu))
+
+
+def _busy(fn):
+    """(wall ms of one synchronized run, device ms that torch.profiler
+    records over another, its top 5 kernels by device time as (name,
+    calls, ms), its kernel count)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    wall = 1e3 * (time.perf_counter() - t0)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernels.sort(key=lambda e: -e.self_device_time_total)
+    device = sum(e.self_device_time_total for e in kernels) / 1e3
+    return wall, device, [(e.key[:48], e.count,
+                           e.self_device_time_total / 1e3)
+                          for e in kernels[:5]], sum(e.count for e in kernels)
+
+
+def _info_checked(what, info, info_cpu):
+    """Symmetric positive definite, and equal to the same estimate on the
+    CPU within CARD_CPU_INFO_RTOL of its largest entry."""
+    I = info.double().cpu()
+    scale = float(I.abs().max())
+    asym = float((I - I.T).abs().max()) / scale
+    eig = torch.linalg.eigvalsh(0.5 * (I + I.T))
+    rel = float((I - info_cpu.double()).abs().max()) / scale
+    check(asym <= 1e-4 and bool((eig > 0).all())
+          and rel <= CARD_CPU_INFO_RTOL, f"{what}: asymmetry {asym}, "
+          f"eigenvalues {eig.tolist()}, card vs CPU {rel}")
+    return f"min eigenvalue {float(eig.min()):.4e}, asymmetry {asym:.2e}, " \
+        f"card vs CPU {rel:.3e}"
+
+
+def _to(res, device):
+    """An ICP result's tensors on ``device``."""
+    def move(x):
+        if isinstance(x, torch.Tensor):
+            return x.to(device)
+        return type(x)(*(move(y) for y in x))
+
+    return move(res)
+
+
+def phase_icp(dev, smi):
+    """bench.py's icp configuration: the 4,096-point pair, multiscale and
+    single-scale ICP, the numpy anchor, GICP, NDT, LUM and Censi."""
+    ref, tgt, t_true = bench_lidar.scan_pair()
+    _lidar_data("icp", "pair", ref, tgt)
+    c, s_ = np.cos(bench_lidar.PAIR_YAW), np.sin(bench_lidar.PAIR_YAW)
+    T_true = torch.eye(4, dtype=torch.float64)
+    T_true[:3, :3] = torch.tensor([[c, -s_, 0], [s_, c, 0], [0, 0, 1]])
+    T_true[:3, 3] = torch.as_tensor(t_true, dtype=torch.float64)
+    pair = (make_cloud(ref, device=dev), make_cloud(tgt, device=dev))
+    pair_cpu = (make_cloud(ref, device="cpu"), make_cloud(tgt, device="cpu"))
+    t_true = torch.as_tensor(t_true)
+    out, rates = {}, {}
+    for name, fn, params in (
+            ("multiscale", icp_match, bench_lidar.ICP_MULTISCALE),
+            ("singlescale", icp_match, bench_lidar.ICP_SINGLE),
+            ("gicp", gicp_match, bench_lidar.GICP),
+            ("ndt", ndt_match, bench_lidar.NDT)):
+        res, inside, _ = _lidar_checked(f"icp {name}",
+                                        lambda: fn(*pair, params))
+        again = fn(*pair, params)
+        check(_same_bits(res.transform, again.transform),
+              f"icp {name}: two card runs differ")
+        is_icp = fn is icp_match
+        res_cpu = fn(*pair_cpu, params) if is_icp else None
+        gap = _transform_gap(res.transform, res_cpu.transform) if is_icp \
+            else 0.0
+        err = float((res.transform.t.cpu() - t_true).norm())
+        td = _t_diff(res.transform, T_true)
+        jax_err = JAX_ICP_ERR[name]
+        bound = (SINGLESCALE_BOUND_M if name == "singlescale"
+                 else 1.5 * jax_err + 1e-3)
+        check(err <= bound and td < ICP_THRESHOLD and gap <= CARD_CPU_T_TOL,
+              f"icp {name}: translation error {err} m (bound {bound}; the "
+              f"JAX package's {jax_err}), ||T - T_true|| {td}, card vs CPU "
+              f"{gap}")
+        rates[name] = 1e3 / _median_ms(lambda: fn(*pair, params), reps=5)
+        out[name] = res
+        vs_cpu = (f"{int(res_cpu.iterations)} on the CPU, card vs CPU "
+                  f"{gap:.3e} (tol {CARD_CPU_T_TOL})" if is_icp
+                  else "not run on the CPU")
+        print(f"icp {name}: {params} | translation "
+              f"error {err:.6e} m (the JAX package's {jax_err:.6e}; bound "
+              f"{bound:.4e}), ||T - T_true||_F {td:.6e} (< {ICP_THRESHOLD}), "
+              f"{int(res.iterations)} iterations ({vs_cpu}), same bits "
+              f"twice, {rates[name]:.3f} pairs/s; synchronizing calls "
+              f"inside: {_sites(inside)}")
+    t0 = time.perf_counter()
+    t_np = bench_lidar.numpy_icp(ref, tgt)
+    np_s = time.perf_counter() - t0
+    np_err = float(np.linalg.norm(t_np - t_true.numpy()))
+    keys = {
+        "icp_scan_pairs_per_s": rates["multiscale"],
+        "icp_translation_err_m": float(
+            (out["multiscale"].transform.t.cpu() - t_true).norm()),
+        "icp_singlescale_pairs_per_s": rates["singlescale"],
+        "icp_pairs_per_s_numpy_cpu": 1.0 / np_s,
+        "icp_vs_numpy_cpu": np_s * rates["singlescale"],
+        "icp_numpy_t_err_m": np_err,
+    }
+    print(f"icp: bench.py's keys {json.dumps(keys)} (numpy anchor on this "
+          f"machine's CPU, neighbours by native.knn_exact, route "
+          f"{native.route()}) | {smi}")
+
+    # information of the multiscale result, and the same result's on the
+    # CPU
+    res = out["multiscale"]
+    res_cpu = _to(res, "cpu")
+    censi = dataclasses.replace(bench_lidar.ICP_MULTISCALE,
+                                covar_estimator="CENSI")
+    lum = _info_checked("icp LUM", estimate_info_lum(res),
+                        estimate_info_lum(res_cpu))
+    cen = _info_checked("icp Censi", estimate_info_censi(res, censi),
+                        estimate_info_censi(res_cpu, censi))
+    print(f"icp information of the multiscale result: LUM {lum}; Censi "
+          f"{cen} (rtol {CARD_CPU_INFO_RTOL})")
+
+    # where a trip's time goes: one multiscale match profiled, and the
+    # batched 3x3 SVD alone
+    wall, device, top, events = _busy(
+        lambda: icp_match(*pair, bench_lidar.ICP_MULTISCALE))
+    trips = int(res.iterations)
+    print(f"icp multiscale profile: {wall:.3f} ms of wall, {device:.3f} ms "
+          f"of device time (busy share {device / wall:.4f}), {events} "
+          f"kernels over {trips} trips; top: "
+          + "; ".join(f"{k} x{n} {ms:.3f} ms" for k, n, ms in top))
+    for B in (1, ODOMETRY_T - 1):
+        H = torch.randn(B, 3, 3, device=dev)
+        (_, syncs) = _sync_free(lambda: torch.linalg.svd(H))
+        ms = _median_ms(lambda: torch.linalg.svd(H), reps=20)
+        print(f"icp: torch.linalg.svd of ({B}, 3, 3) f32: {ms:.4f} ms "
+              f"(synchronized host clock, median of 20); synchronizing "
+              f"calls: {sum(syncs.values())}")
+
+
+def phase_lidar_odometry(dev, smi):
+    """lidar_odometry on bench_lidar.scan_sequence(ODOMETRY_T, 4096): the
+    pairs in one batch, full-resolution ICP with LUM information and the
+    pose-graph refinement, bench.py's multiscale ICP, NDT."""
+    pts, mask, _, p_true = bench_lidar.scan_sequence(ODOMETRY_T, 4096)
+    _lidar_data("lidar_odometry", "sequence", pts, mask)
+    pts32 = pts.astype(np.float32)
+    scans = PointCloud(torch.as_tensor(pts32).to(dev),
+                       torch.as_tensor(mask).to(dev))
+    k = ODOMETRY_CPU_PAIRS + 1
+    scans_cpu = PointCloud(torch.as_tensor(pts32[:k]),
+                           torch.as_tensor(mask[:k]))
+    pairs = ODOMETRY_T - 1
+    runs = {
+        "icp_refined": (icp_match, LidarOdometryConfig(
+            icp=bench_lidar.ODOMETRY_ICP, refine_pose_graph=True,
+            pose_graph=PoseGraphConfig())),
+        "icp_multiscale": (icp_match, LidarOdometryConfig(
+            icp=bench_lidar.ICP_MULTISCALE)),
+        "ndt": (ndt_match, LidarOdometryConfig(
+            icp=bench_lidar.NDT, estimate_information=False)),
+    }
+    for name, (matcher, cfg) in runs.items():
+        def run():
+            return lidar_odometry(scans, cfg, matcher=matcher)
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res = run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        again, inside, host = _lidar_checked(f"lidar_odometry {name}", run)
+        check(_same_bits(res.trajectory, again.trajectory)
+              and torch.equal(res.information, again.information),
+              f"lidar_odometry {name}: two card runs differ")
+        err = float(np.linalg.norm(res.trajectory.t.double().cpu().numpy()
+                                   - p_true, axis=-1).max())
+        jax_err = JAX_ODOMETRY_ERR[name]
+        check(bool(res.converged.all()) and err <= 1.5 * jax_err + 1e-3,
+              f"lidar_odometry {name}: converged {res.converged.tolist()}, "
+              f"worst position error {err} m (the JAX package's {jax_err})")
+        t0 = time.perf_counter()
+        cpu = lidar_odometry(scans_cpu, cfg, matcher=matcher)
+        cpu_s = time.perf_counter() - t0
+        first = SE3(res.relative.q[:k - 1], res.relative.t[:k - 1])
+        gap = _transform_gap(first, cpu.relative)
+        check(gap <= CARD_CPU_T_TOL, f"lidar_odometry {name}: the first "
+              f"{k - 1} pairs part from the CPU's by {gap}")
+        print(f"lidar_odometry {name}: {pairs} pairs of 4,096 points, f32, "
+              f"one batch: worst position error {err:.6e} m (the JAX "
+              f"package's {jax_err:.6e}; bound 1.5x + 1 mm), all converged, "
+              f"iterations {min(res.iterations.tolist())}-"
+              f"{max(res.iterations.tolist())}, {pairs / wall:.3f} pairs/s "
+              f"({wall:.3f} s), peak allocated {peak:.3f} GiB; same bits "
+              f"twice; first {k - 1} pairs card vs CPU {gap:.3e} (tol "
+              f"{CARD_CPU_T_TOL}; CPU {cpu_s:.3f} s); synchronizing calls "
+              f"inside the matchers: {_sites(inside)}; outside: "
+              f"{_sites(host)} | {smi}")
+        if name == "icp_refined":
+            w, device, top, events = _busy(run)
+            print(f"lidar_odometry {name} profile: {w:.3f} ms of wall, "
+                  f"{device:.3f} ms of device time (busy share "
+                  f"{device / w:.4f}), {events} kernels; top: "
+                  + "; ".join(f"{k_} x{n} {ms:.3f} ms" for k_, n, ms in top))
+
+
+def phase_ground(dev, smi):
+    """segment_ground on ground_scene() (116,800 points) at the default
+    bins (72 x 200, rmax 100 m)."""
+    pts, labels = bench_lidar.ground_scene()
+    _lidar_data("ground", "ground", pts, labels)
+    params = bench_lidar.GROUND_PARAMS
+    cloud = make_cloud(pts, device=dev)
+    reset_launches()
+    got = segment_ground(cloud, params).labels
+    check(not any(launch_counts().values()), "ground: launched a kernel")
+    again = segment_ground(cloud, params).labels
+    got = got.cpu().numpy()
+    cpu = segment_ground(make_cloud(pts, device="cpu"), params).labels
+    agree = float((got == cpu.numpy()).mean())
+    scores = bench_lidar.ground_scores(got, labels)
+    off = {k: abs(v - JAX_GROUND[k]) for k, v in scores.items()}
+    check(max(off.values()) <= GROUND_SCORE_TOL and agree >= GROUND_AGREE,
+          f"ground: scores {scores} (the JAX package's {JAX_GROUND}), "
+          f"card vs CPU labels agree on {agree}")
+    ms = _median_ms(lambda: segment_ground(cloud, params), reps=10)
+    print(f"ground: {len(pts)} points, {params.num_bins_a} x "
+          f"{params.num_bins_l} bins, f32: "
+          + ", ".join(f"{k} {v:.6f} (JAX {JAX_GROUND[k]:.6f})"
+                      for k, v in scores.items())
+          + f"; card vs CPU labels agree on {agree:.6f} (gate "
+          f"{GROUND_AGREE}); same labels twice "
+          f"{bool((again.cpu().numpy() == got).all())}; {ms:.3f} ms per "
+          f"scan (synchronized host clock, median of 10) | {smi}")
 
 
 def _frame_bank(frame, dev, params=FASTParams(threshold=20.0, num_features=512)):
@@ -1791,6 +2170,9 @@ def main():
     phase_windowed(dev, smi)
     phase_mh01_scale(dev, smi)
     phase_windowed_ba(dev, smi)
+    phase_icp(dev, smi)
+    phase_lidar_odometry(dev, smi)
+    phase_ground(dev, smi)
     t0 = time.perf_counter()
     frames = bench_frontend.make_euroc_frames()
     check(frames.shape == (SEQUENCE_FRAMES, 480, 752),

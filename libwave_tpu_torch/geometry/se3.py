@@ -38,13 +38,14 @@ class SE3(NamedTuple):
         return so3.quat_to_rot(self.q)
 
     def matrix(self) -> torch.Tensor:
-        """As (..., 4, 4) homogeneous matrices."""
+        """As (..., 4, 4) homogeneous matrices (no host scalar written into
+        a tensor, which would synchronize with the card)."""
         R = self.rotation()
-        T = R.new_zeros(R.shape[:-2] + (4, 4))
-        T[..., :3, :3] = R
-        T[..., :3, 3] = self.t
-        T[..., 3, 3] = 1.0
-        return T
+        top = torch.cat([R, self.t[..., :, None]], dim=-1)
+        bottom = torch.zeros_like(top[..., :1, :])
+        bottom = torch.cat([bottom[..., :3], torch.ones_like(bottom[..., 3:])],
+                           dim=-1)
+        return torch.cat([top, bottom], dim=-2)
 
     def apply(self, x: torch.Tensor) -> torch.Tensor:
         """Transform points: (..., 3) -> (..., 3)."""

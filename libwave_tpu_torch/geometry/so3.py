@@ -62,10 +62,11 @@ def vee(Phi: torch.Tensor) -> torch.Tensor:
 
 def quat_identity(shape=(), dtype=torch.float32, device=None) -> torch.Tensor:
     """Identity quaternion(s) of shape ``shape + (4,)`` on ``device``
-    (default: the card)."""
-    q = torch.zeros(tuple(shape) + (4,), dtype=dtype, device=resolve(device))
-    q[..., 0] = 1.0
-    return q
+    (default: the card). Built without writing a host scalar into the
+    tensor, which would synchronize with the card."""
+    w = torch.ones(tuple(shape) + (1,), dtype=dtype, device=resolve(device))
+    return torch.cat([w, torch.zeros_like(w).expand(tuple(shape) + (3,))],
+                     dim=-1)
 
 
 def quat_multiply(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

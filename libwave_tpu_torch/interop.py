@@ -15,7 +15,9 @@ never import JAX.
 - :func:`vo_dataset_from_jax_numpy`, :func:`pim_from_jax_numpy`,
   :func:`vio_problem_from_jax_numpy`, :func:`vio_state_from_jax_numpy`: the
   VIO slice's ``VoDataset``, ``PreintegratedImu``, ``VIOProblem`` and
-  ``VIOState``.
+  ``VIOState``;
+- :func:`point_cloud_from_numpy`, :func:`se3_from_numpy`: the lidar
+  slice's ``PointCloud`` and ``SE3``.
 """
 
 from __future__ import annotations
@@ -26,6 +28,8 @@ import numpy as np
 import torch
 
 from libwave_tpu_torch.containers.landmark import LandmarkBuffer
+from libwave_tpu_torch.geometry.se3 import SE3
+from libwave_tpu_torch.matching.pointcloud import PointCloud
 from libwave_tpu_torch.optim import pose_graph, schur
 from libwave_tpu_torch.optim.ba import BAProblem, BAState
 from libwave_tpu_torch.optim.imu import PreintegratedImu
@@ -205,3 +209,19 @@ def vio_state_from_jax_numpy(state, device=None, dtype=None) -> VIOState:
     device = resolve(device)
     return VIOState(*(_tensor(getattr(state, f), device, dtype)
                       for f in VIOState._fields))
+
+
+def point_cloud_from_numpy(cloud, device=None, dtype=None) -> PointCloud:
+    """A ``PointCloud`` (numpy leaves, any leading batch dimensions) on
+    ``device`` (default: the card); the mask stays bool, the points keep
+    their dtype unless ``dtype`` is given."""
+    device = resolve(device)
+    return PointCloud(points=_tensor(cloud.points, device, dtype),
+                      mask=_tensor(cloud.mask, device, None))
+
+
+def se3_from_numpy(T, device=None, dtype=None) -> SE3:
+    """An ``SE3`` (numpy leaves ``q``, ``t``) on ``device`` (default: the
+    card)."""
+    device = resolve(device)
+    return SE3(q=_tensor(T.q, device, dtype), t=_tensor(T.t, device, dtype))

@@ -15,9 +15,11 @@ from libwave_tpu_torch.optim.marginalization import (  # noqa: F401
 )
 from libwave_tpu_torch.optim.pose_graph import (  # noqa: F401
     BetweenBank,
+    PoseGraphConfig,
     PriorBank,
     between_from_trajectory,
     pose_graph_cost,
+    solve_pose_graph,
 )
 from libwave_tpu_torch.optim.reprojection import (  # noqa: F401
     linearize_reprojection,

@@ -1,5 +1,6 @@
 """End-to-end pipelines (port of ``libwave_tpu.pipelines``' visual front
-end, VIO, EuRoC VIO and the windowed VIO and BA solvers)."""
+end, VIO, EuRoC VIO, the windowed VIO and BA solvers and lidar
+odometry)."""
 
 from libwave_tpu_torch.pipelines.euroc_vio import (  # noqa: F401
     EurocVIOParams,
@@ -32,4 +33,9 @@ from libwave_tpu_torch.pipelines.visual_frontend import (  # noqa: F401
     detect_and_describe,
     track_sequence,
     tracks_from_state,
+)
+from libwave_tpu_torch.pipelines.lidar_odometry import (  # noqa: F401
+    LidarOdometryConfig,
+    LidarOdometryResult,
+    lidar_odometry,
 )

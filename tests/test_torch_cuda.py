@@ -3,6 +3,10 @@ against their plain PyTorch versions, their input checks, and small solves
 (explicit-S and matrix-free BA, dense and PCG VIO) and a small front-end
 sequence through them.
 
+The lidar path has no package kernel: its card tests hold the voxel hash,
+the fixed-order segment sums, a batched ICP and the ground segmentation
+on the card against the CPU.
+
 Every test here needs a CUDA device and skips without one. The file
 imports no JAX, so on a machine with the card and without JAX it runs as
 
@@ -650,3 +654,123 @@ def test_small_windowed_ba_through_kernels(cuda_device):
                                rep_c["window_final_costs"], rtol=1e-4)
     assert float(np.abs(p - p_c).max()) <= 1e-3
     assert float(np.linalg.norm(p - c["p_gt"], axis=-1).max()) < 0.1
+
+
+# --- the lidar path: no package kernel, card against CPU -------------------
+
+
+def _lidar_cloud(seed, n=2048, dtype=torch.float32):
+    from libwave_tpu_torch.matching import synthetic_scan
+
+    return synthetic_scan(seed, n=n, dtype=dtype, device="cpu")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("leaf", [0.05, 0.3, 2.0])
+def test_voxel_hash_bits_card_vs_cpu(cuda_device, leaf):
+    """The int32 voxel hash on the card equals the CPU's bit for bit (the
+    division by the leaf is exact on both; the products wrap)."""
+    from libwave_tpu_torch.matching.pointcloud import _voxel_hash
+
+    rng = np.random.default_rng(5)
+    for dtype in (torch.float32, torch.float64):
+        pts = torch.as_tensor(rng.uniform(-5e3, 5e3, (4096, 3))).to(dtype)
+        assert torch.equal(_voxel_hash(pts.to(cuda_device), leaf).cpu(),
+                           _voxel_hash(pts, leaf))
+
+
+@pytest.mark.cuda
+def test_voxel_and_ndt_sums_repeat_bit_for_bit(cuda_device):
+    """voxel_downsample's and build_ndt_grid's segment sums give the same
+    bits on two card runs (no atomics), and agree with the CPU: the same
+    masks and keys, means within 1e-5 m (f32)."""
+    from libwave_tpu_torch.matching import PointCloud, voxel_downsample
+    from libwave_tpu_torch.matching.ndt import build_ndt_grid
+
+    cpu = _lidar_cloud(3, n=4096)
+    card = PointCloud(*(x.to(cuda_device) for x in cpu))
+    runs = ((lambda c: voxel_downsample(c, 0.3), "mask", "points"),
+            (lambda c: build_ndt_grid(c, 2.0), "keys", "means"))
+    for fn, exact, close in runs:
+        a, b, ref = fn(card), fn(card), fn(cpu)
+        assert all(torch.equal(x, y) for x, y in zip(a, b))
+        assert torch.equal(getattr(a, exact).cpu(), getattr(ref, exact))
+        np.testing.assert_allclose(getattr(a, close).cpu().numpy(),
+                                   getattr(ref, close).numpy(), atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_batched_icp_equals_pairs_one_at_a_time(cuda_device):
+    """Three pairs through one batched multiscale icp_match on the card, at
+    f64, against the same pairs one at a time on the card (iterations
+    equal, transforms within 1e-9) and against the CPU (1e-9)."""
+    from libwave_tpu_torch.geometry import so3
+    from libwave_tpu_torch.geometry.se3 import SE3
+    from libwave_tpu_torch.matching import (
+        ICPParams,
+        PointCloud,
+        icp_match,
+        transform_cloud,
+    )
+
+    ref = _lidar_cloud(11, n=2048, dtype=torch.float64)
+    tgts = [transform_cloud(SE3(
+        q=so3.exp_quat(torch.tensor([0.0, 0.0, 0.01 * k],
+                                    dtype=torch.float64)),
+        t=torch.tensor([0.1 * k, 0.05, 0.0], dtype=torch.float64)), ref)
+        for k in range(3)]
+    params = ICPParams(res=0.2, multiscale_steps=2, max_iter=25)
+
+    def stack(clouds, dev):
+        return PointCloud(torch.stack([c.points for c in clouds]).to(dev),
+                          torch.stack([c.mask for c in clouds]).to(dev))
+
+    batched = icp_match(stack([ref] * 3, cuda_device),
+                        stack(tgts, cuda_device), params)
+    for k, tgt in enumerate(tgts):
+        for dev in (cuda_device, torch.device("cpu")):
+            one = icp_match(PointCloud(*(x.to(dev) for x in ref)),
+                            PointCloud(*(x.to(dev) for x in tgt)), params)
+            assert int(one.iterations) == int(batched.iterations[k])
+            for a, b in zip(one.transform, batched.transform):
+                np.testing.assert_allclose(a.cpu().numpy(),
+                                           b[k].cpu().numpy(), atol=1e-9)
+
+
+@pytest.mark.cuda
+def test_segment_ground_card_vs_cpu(cuda_device):
+    """segment_ground on the card against the CPU on the JAX package
+    test's scene size at 24 x 40 bins and at the default bins: labels agree
+    on at least 99.9% of points (f32)."""
+    from libwave_tpu_torch import bench_lidar
+    from libwave_tpu_torch.matching import (
+        GroundSegmentationParams,
+        make_cloud,
+        segment_ground,
+    )
+
+    pts, _ = bench_lidar.ground_scene(12000, 2000, 600)
+    for params in (GroundSegmentationParams(rmax=60.0, num_bins_a=24,
+                                            num_bins_l=40),
+                   GroundSegmentationParams()):
+        card = segment_ground(make_cloud(pts, device=cuda_device), params)
+        cpu = segment_ground(make_cloud(pts, device="cpu"), params)
+        agree = (card.labels.cpu() == cpu.labels).double().mean()
+        assert float(agree) >= 0.999
+
+
+@pytest.mark.cuda
+def test_identity_and_matrix_make_no_sync(cuda_device):
+    """``so3.quat_identity`` and ``SE3.matrix`` wrote a host scalar into a
+    card tensor, a synchronizing copy on every ICP trip; now neither
+    synchronizes (sync debug mode "error" raises on one)."""
+    from libwave_tpu_torch.geometry.se3 import SE3
+
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        T = SE3.identity((5,), device=cuda_device)
+        M = T.matrix()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert torch.equal(M.cpu(), torch.eye(4).expand(5, 4, 4))

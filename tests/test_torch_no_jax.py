@@ -42,7 +42,11 @@ for new in ("ops.hamming", "vision.matcher", "vision.tracker",
             "datasets.euroc", "sim.euroc_sim", "optim.marginalization",
             "pipelines.euroc_vio", "bench_designs", "utils.checkpoint",
             "pipelines.windowed_vio", "pipelines.windowed_ba",
-            "bench_windowed"):
+            "bench_windowed", "geometry.euler", "native", "matching",
+            "matching.pointcloud", "matching.knn", "matching.loop",
+            "matching.icp", "matching.gicp", "matching.ndt", "matching.multi",
+            "matching.ground_segmentation", "pipelines.lidar_odometry",
+            "datasets.kitti", "bench_lidar"):
     assert "libwave_tpu_torch." + new in names, new
 print("imported", len(names), "modules")
 """
@@ -60,9 +64,9 @@ def test_port_and_chip_smoke_import_without_jax():
     proc = _run(["-c", IMPORT_ALL])
     assert proc.returncode == 0, proc.stderr
     count = int(proc.stdout.split()[1])
-    # the back end's, the front end's, VIO's, EuRoC VIO's and the windowed
-    # solvers' modules
-    assert count >= 47
+    # the back end's, the front end's, VIO's, EuRoC VIO's, the windowed
+    # solvers' and the lidar path's modules
+    assert count >= 61
 
 
 def test_chip_smoke_fails_without_cuda():
