@@ -186,7 +186,39 @@ it imports no JAX. Phases, each reported on its own line:
     contiguous tracks of mean length >= 3, rows and ids within 10% of the JAX
     package's figures on the same frames, frames/s for both runs, ms per
     frame by layer, and the synchronizing calls of one frame step (none
-    allowed outside RANSAC's ``torch.linalg`` calls).
+    allowed outside RANSAC's ``torch.linalg`` calls);
+18. pixels: ``bench.py``'s pixels sequence (8 s at 5 Hz: 41 frames of
+    376x240, 120 landmarks, seed 0) written by the port's simulator with
+    its own PNG encoder into a temporary directory, read back by its own
+    decoder (equal to the rendered frames bit for bit) and run through
+    ``run_euroc_vio_from_images`` on the card: 1 top-2 launch per frame,
+    1 G/A, 3 reduce and 1 broadcast per LM iteration, ATE under 0.06 m and
+    under half the dead reckoning, >= 60 tracks (the JAX test's bounds),
+    tracks equal with the plain top-2; frames/s, solve keyframes/s, the
+    front end's busy share and its synchronizing calls per frame;
+19. orb: the 25 frames of 17. through ``FrontendParams(method="orb")``:
+    one frame's bank on the card against the CPU's (keypoint overlap and
+    rBRIEF bits >= 99%), the top-2 at ORB's 512 x 512 x 8 against its
+    plain version (exactly) and timed, the tracked sequence (1 top-2 per
+    frame, tracks equal with the plain top-2, >= 40 ids of mean length >=
+    2: the JAX ORB test's bounds) and ms per frame by layer;
+20. lsh: ``bench.py``'s two LSH configurations from its numpy seed: the
+    16,384 x 16,384 x 16 planted banks (index and matches equal to the
+    CPU's bit for bit, recall, index build s, matches/s; the exact top-2
+    kernel at that shape against its plain version, exactly) and one
+    512-keypoint frame against a 65,536 map through
+    ``MatcherParams(method="lsh")`` (recall, agreement with an exact numpy
+    oracle, equal to the CPU's);
+21. vo_pair: ``two_frame_pose`` on frames 0 and 2 of 17. with 8
+    generators: the median rotation error against the simulator's truth
+    within 1.5x + 1e-3 rad of the JAX package's median over 8 keys
+    (``tests/vo_anchors.py``), 1 top-2 launch per pair, ms and
+    synchronizing calls per pair;
+22. batched: 8 copies of 17.'s frames through ``track_sequences_batched``
+    (``FrontendParams()``, one generator each): every sequence's tracks
+    equal ``track_sequence``'s with its generator, the top-2 launched once
+    per sequence per frame, aggregate frames/s against one sequence at a
+    time.
 
 The line before the last is a JSON object describing each kernel (its
 launches on its main path, its largest difference from the plain version,
@@ -215,6 +247,7 @@ import sys
 import tempfile
 import time
 import traceback
+import types
 import warnings
 from pathlib import Path
 from unittest import mock
@@ -251,20 +284,29 @@ from libwave_tpu_torch.optim.pose_graph import (
     PriorBank,
     solve_pose_graph,
 )
+from libwave_tpu_torch.datasets.euroc import load_euroc_camera_index
 from libwave_tpu_torch.pipelines import (
     LidarOdometryConfig,
     euroc_vio,
     lidar_odometry,
     vio,
     visual_frontend,
+    vo_frontend,
     windowed_ba,
     windowed_vio,
 )
 from libwave_tpu_torch.sim import euroc_sim
 from libwave_tpu_torch.utils import precision
-from libwave_tpu_torch.vision import matcher
-from libwave_tpu_torch.vision.descriptor import brisk_describe
-from libwave_tpu_torch.vision.detector import FASTParams, detect_fast
+from libwave_tpu_torch.vision import flann, images, matcher
+from libwave_tpu_torch.vision.descriptor import (
+    brisk_describe,
+    orb_describe_pyramid,
+)
+from libwave_tpu_torch.vision.detector import (
+    FASTParams,
+    detect_fast,
+    detect_orb_pyramid,
+)
 from libwave_tpu_torch.vision.tracker import add_image_features, tracker_init
 
 HERE = Path(__file__).resolve().parent
@@ -357,6 +399,28 @@ GROUND_SCORE_TOL = 0.005
 GROUND_AGREE = 0.999
 ODOMETRY_T = 50
 ODOMETRY_CPU_PAIRS = 4
+# pixels: bench.py's bench_pixels sequence (8 s at 5 Hz, 41 frames, 120
+# landmarks, 376x240, seed 0) and the JAX test's bounds
+# (tests/test_pixels_to_trajectory.py:114-125)
+PIXELS_SIM = euroc_sim.EurocSimParams(
+    duration=8.0, cam_hz=5.0, nb_landmarks=120, fx=229.0, fy=228.0,
+    cx=188.0, cy=120.0, width=376, height_px=240, render_images=True)
+PIXELS_ATE_BOUND_M = 0.06
+PIXELS_MIN_TRACKS = 60
+# orb: the JAX ORB test's bounds (tests/test_pixels_to_trajectory.py:92-103)
+ORB_MIN_IDS = 40
+ORB_MIN_MEAN_LENGTH = 2.0
+ORB_AGREE = 0.99  # keypoint overlap and rBRIEF bits, card vs this CPU
+# lsh: bench.py's bench_lsh configurations (numpy seed 3)
+LSH_N, LSH_WORDS, LSH_FLIPS = 16384, 16, 20
+LSH_MAP, LSH_QUERIES = 65536, 512
+# vo_pair: the JAX package's two_frame_pose on frames 0 and 2 of the orb
+# sequence, VOFrontendConfig(), f32 with x64 off, jax.random.key(0..7), on a
+# CPU: the median rotation error (rad) against the simulator's truth
+# (tests/vo_anchors.py)
+JAX_VO_ROT_ERR = 0.01935679592331921
+VO_SEEDS = 8
+BATCH = 8  # batched: B copies of the orb sequence
 # the port's lidar modules: a synchronizing call made while a matcher or
 # the pose-graph solve is on the stack fails outside their torch.linalg
 # calls
@@ -895,6 +959,47 @@ def _plain_crossings(plain):
     return mock.patch.multiple(
         segmm, seg_reduce_sorted=segmm.seg_reduce_sorted_reference,
         seg_broadcast=segmm.seg_broadcast_reference)
+
+
+@contextlib.contextmanager
+def _held_to_plain(what, stats):
+    """Every G/A, reduce and broadcast call of a dense solve also runs its
+    plain version on the same inputs and holds the kernel to it: the
+    segment kernels bit for bit, G/A within REL_TOL * max|plain|.
+    ``stats``: per kernel, the calls held and the largest |kernel - plain|.
+    The plain versions synchronize (the reduce reads its longest run on the
+    host), so a run under this is neither counted nor checked for syncs."""
+    def held(name, kern, plain, exact):
+        def call(*args):
+            got, ref = kern(*args), plain(*args)
+            for g, r in zip(*(x if isinstance(x, tuple) else (x,)
+                              for x in (got, ref))):
+                err = float((g.double() - r.double()).abs().max()) \
+                    if g.numel() else 0.0
+                scale = float(r.abs().max()) if r.numel() else 0.0
+                st = stats.setdefault(name, {"calls": 0, "max_abs_err": 0.0})
+                st["max_abs_err"] = max(st["max_abs_err"], err)
+                check(torch.equal(g, r) if exact else err <= REL_TOL * scale,
+                      f"{what}: {name} call {st['calls']} at shape "
+                      f"{tuple(g.shape)}: max |kernel - plain| {err:.3e} "
+                      f"(max|plain| {scale:.3e})")
+            stats[name]["calls"] += 1
+            return got
+        return call
+
+    # schur's own view of segmm: the wrappers count their launches through
+    # their module's names, which stay untouched
+    view = types.SimpleNamespace(**{
+        **vars(segmm),
+        "seg_reduce_sorted": held("seg_reduce", segmm.seg_reduce_sorted,
+                                  segmm.seg_reduce_sorted_reference, True),
+        "seg_broadcast": held("seg_broadcast", segmm.seg_broadcast,
+                              segmm.seg_broadcast_reference, True)})
+    with mock.patch.object(schur, "dense_g_a_window", held(
+            "segmm_g_a", segmm.dense_g_a_window,
+            segmm.dense_g_a_window_reference, False)), \
+            mock.patch.object(schur, "segmm", view):
+        yield
 
 
 def _sync_free(fn, solvers=None):
@@ -2139,6 +2244,493 @@ def phase_sequence(frames, dev, smi):
     return launches
 
 
+def _gen(dev, seed):
+    return torch.Generator(device=dev).manual_seed(seed)
+
+
+def _synced(fn):
+    """(result, seconds) of ``fn`` on a synchronized host clock."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def _track_stats(tracks):
+    ids = np.unique(tracks[:, 1])
+    lengths = np.bincount(tracks[:, 1].astype(int))
+    lengths = lengths[lengths > 0]
+    return len(tracks), len(ids), float(lengths.mean())
+
+
+def _syncs_per_frame(frames, dev, params):
+    """Synchronizing calls of ``track_sequence`` as (per frame, per
+    sequence, sites of a 6-frame run): runs of 3 and 6 frames tell the
+    calls each frame makes from those made once (the upload of the times,
+    the track export)."""
+    def sites(n):
+        _, syncs = _sync_free(lambda: visual_frontend.track_sequence(
+            frames[:n], params=params, generator=_gen(dev, 3), device=dev))
+        out = collections.Counter()
+        for k, v in syncs.items():
+            out[f"{Path(k).name}:{k.rsplit(':', 1)[1]}"] += v
+        return out
+
+    three, six = sites(3), sites(6)
+    per_frame = (sum(six.values()) - sum(three.values())) / 3
+    return per_frame, sum(three.values()) - 3 * per_frame, six
+
+
+def phase_pixels(dev, smi):
+    """bench.py's pixels configuration through run_euroc_vio_from_images."""
+    p = PIXELS_SIM
+    K = np.array([[p.fx, 0, p.cx], [0, p.fy, p.cy], [0, 0, 1.0]])
+    params = euroc_vio.EurocVIOParams()
+    cfg = euroc_vio.default_vio_config(params)
+    it = cfg.max_iterations
+    fp = visual_frontend.FrontendParams()
+    with tempfile.TemporaryDirectory(prefix="pixels_") as root:
+        # the writer's IMU noise from a CPU generator: the directory this
+        # machine writes is the one any other writes
+        t0 = time.perf_counter()
+        euroc_sim.generate_euroc_sequence(root, p, seed=0, device="cpu")
+        gen_s = time.perf_counter() - t0
+        _, paths = load_euroc_camera_index(root)
+        t0 = time.perf_counter()
+        frames = images.read_image_sequence(paths)
+        decode_s = time.perf_counter() - t0
+        T = len(frames)
+        check(np.array_equal(frames, euroc_sim.cam0_frames(p, seed=0)),
+              "pixels: the decoded PNGs differ from the rendered frames")
+        want = dict(segmm_g_a=it, seg_reduce=3 * it, seg_broadcast=it,
+                    hamming_top2=T, hamming_table=0)
+        reset_launches()
+        _, rep = euroc_vio.run_euroc_vio_from_images(
+            root, params, K=K, generator=_gen(dev, 0), device=dev)
+        counts = launch_counts()
+        check(counts == want, f"pixels: launches {counts} for {T} frames and "
+              f"{it} LM iterations, expected {want}")
+        ate, ate0 = rep["ate_rmse"], rep["ate_rmse_deadreckon"]
+        check(np.isfinite(rep["final_cost"])
+              and rep["final_cost"] < rep["initial_cost"],
+              f"pixels: cost {rep['initial_cost']} -> {rep['final_cost']}")
+        check(ate < PIXELS_ATE_BOUND_M and ate < 0.5 * ate0
+              and rep["num_tracks"] >= PIXELS_MIN_TRACKS,
+              f"pixels: ATE {ate} m (dead reckoning {ate0} m, bound "
+              f"{PIXELS_ATE_BOUND_M} m and half of it), {rep['num_tracks']} "
+              f"tracks (>= {PIXELS_MIN_TRACKS})")
+
+        tracks = visual_frontend.track_sequence(frames, params=fp,
+                                                generator=_gen(dev, 0),
+                                                device=dev)
+        with _top2(plain=True):
+            tracks_p = visual_frontend.track_sequence(
+                frames, params=fp, generator=_gen(dev, 0), device=dev)
+        check(np.array_equal(tracks, tracks_p), "pixels: tracks with the "
+              "top-2 kernel and with its plain version differ")
+        check(len(tracks) == rep["num_track_measurements"], f"pixels: "
+              f"track_sequence gave {len(tracks)} rows, the entry point "
+              f"{rep['num_track_measurements']}")
+        (problem, init, gt, kf), build_s = _synced(
+            lambda: euroc_vio.build_euroc_vio_problem(
+                root, params, K, tracks=tracks, device=dev))
+        # the solve behind the images, held as phase_euroc holds its own:
+        # launches, no sync outside torch.linalg, and the same problem
+        # solved on the CPU through the plain versions
+        reset_launches()
+        (state, info), syncs = _sync_free(
+            lambda: vio.solve_vio(problem, init, cfg))
+        solve_counts = launch_counts()
+        want_solve = dict(want, hamming_top2=0)
+        check(solve_counts == want_solve, f"pixels: launches {solve_counts} "
+              f"in the solve's {it} LM iterations, expected {want_solve}")
+        stray = sorted(set(syncs) - _linalg_sites())
+        check(not stray, f"pixels: synchronizing calls inside solve_vio "
+              f"outside torch.linalg: {stray}")
+        rep_s = euroc_vio.euroc_report(gt, kf, init, state, info)
+        held = {}
+        with _held_to_plain("pixels", held):
+            state_h, _ = vio.solve_vio(problem, init, cfg)
+        check({k: v["calls"] for k, v in held.items()} == {
+            k: v for k, v in want_solve.items() if v},
+            f"pixels: {held} calls held to the plain versions, expected "
+            f"{want_solve}")
+        rerun_same = torch.equal(state_h.p, state.p)
+        # the same problem on the CPU through the plain versions. The f32
+        # solve stops short of its minimum in 25 iterations, the JAX
+        # package's too (tests/pixels_f32_spread.py), so its positions
+        # follow the summation order by millimetres: held are the final
+        # cost (rtol 1e-4) and the ATE (1.5x + 1 mm of the CPU's); the
+        # positions' gap and the CPU's own spread between thread counts
+        # are printed
+        cpu = torch.device("cpu")
+        problem_c, init_c, gt_c, kf_c = euroc_vio.build_euroc_vio_problem(
+            root, params, K, tracks=tracks, device=cpu)
+        est_c, info_c = vio.solve_vio(problem_c, init_c, cfg)
+        rep_c = euroc_vio.euroc_report(gt_c, kf_c, init_c, est_c, info_c)
+        threads = torch.get_num_threads()
+        torch.set_num_threads(1)
+        try:
+            est_1, _ = vio.solve_vio(problem_c, init_c, cfg)
+        finally:
+            torch.set_num_threads(threads)
+        cost, cost_c = rep_s["final_cost"], rep_c["final_cost"]
+        dp = float((state.p.cpu() - est_c.p).abs().max())
+        dp_cpu = float((est_1.p - est_c.p).abs().max())
+        check(abs(cost - cost_c) <= 1e-4 * abs(cost_c)
+              and rep_s["ate_rmse"] <= 1.5 * rep_c["ate_rmse"] + 1e-3,
+              f"pixels: card final cost {cost} vs CPU {cost_c}, ATE "
+              f"{rep_s['ate_rmse']} m vs {rep_c['ate_rmse']} m")
+        solve_s = [_synced(lambda: float(vio.solve_vio(
+            problem, init, cfg)[1]["final_cost"]))[1] for _ in range(2)]
+        N = init.q.shape[0]
+        front = lambda: visual_frontend.track_sequence(  # noqa: E731
+            frames, params=fp, generator=_gen(dev, 0), device=dev)
+        front_s = [_synced(front)[1] for _ in range(2)]
+        wall, device_ms, top, n_kernels = _busy(front)
+        per_frame, per_seq, sites = _syncs_per_frame(frames, dev, fp)
+    print(f"pixels: bench.py's pixels sequence ({p.duration:g} s, {T} frames "
+          f"{p.width}x{p.height_px}, {p.nb_landmarks} landmarks, seed 0) "
+          f"written with the port's save_png in {gen_s:.3f} s, read back by "
+          f"its zlib + numpy decoder in {decode_s:.3f} s "
+          f"({T / decode_s:.1f} frames/s), equal to the rendered frames bit "
+          f"for bit")
+    print(f"pixels: run_euroc_vio_from_images on the card: launches "
+          f"{counts} ({T} top-2 = 1 per frame; {it} dense LM iterations: 1 "
+          f"G/A, 3 reduce, 1 broadcast each); {rep['num_tracks']} tracks, "
+          f"{rep['num_track_measurements']} rows (kernel and plain top-2 "
+          f"give the same tracks); ATE {ate:.6f} m (dead reckoning "
+          f"{ate0:.6f} m; bounds {PIXELS_ATE_BOUND_M} m and half the dead "
+          f"reckoning), RPE {rep['rpe_trans_rmse']:.6f} m | {smi}")
+    listed = ", ".join(f"{Path(k).name}:{k.rsplit(':', 1)[1]} x{v}"
+                       for k, v in sorted(syncs.items())) or "none"
+    print(f"pixels: the solve on the card: launches {solve_counts}; "
+          f"synchronizing calls: {listed}; every call held to its plain "
+          f"version on the same inputs ("
+          + ", ".join(f"{k} {v['calls']} calls, max abs err "
+                      f"{v['max_abs_err']:.3e}" for k, v in held.items())
+          + f"; segment kernels bit for bit, G/A rtol {REL_TOL:g}); against "
+          f"the CPU's (plain versions, same tracks): final cost "
+          f"{cost:.6e} vs {cost_c:.6e} (relative difference "
+          f"{abs(cost / cost_c - 1):.3e}, rtol 1e-4), ATE "
+          f"{rep_s['ate_rmse']:.6f} m vs {rep_c['ate_rmse']:.6f} m (bound "
+          f"1.5x + 1 mm), keyframe positions {dp:.3e} m apart (the CPU's "
+          f"1 thread against {threads}: {dp_cpu:.3e} m); the held run's "
+          f"positions {'equal' if rerun_same else 'differ from'} the counted "
+          f"run's | {smi}")
+    print(f"pixels: front end {T / np.median(front_s):.3f} frames/s (runs "
+          f"{', '.join(f'{T / t:.3f}' for t in front_s)}; in the entry point "
+          f"{rep['frontend_frames_per_s']:.3f}, its first call); solve "
+          f"{N / np.median(solve_s):.3f} keyframes/s ({N} keyframes, {it} LM "
+          f"iterations, runs {', '.join(f'{N / t:.3f}' for t in solve_s)}); "
+          f"build {build_s:.3f} s; front-end busy share "
+          f"{device_ms / wall:.3f} ({device_ms:.1f} ms of device time in "
+          f"{wall:.1f} ms, {n_kernels} kernels); synchronizing calls "
+          f"{per_frame:g} a frame and {per_seq:g} a sequence (6 frames: "
+          f"{', '.join(f'{k} x{v}' for k, v in sorted(sites.items()))}) | "
+          f"{smi}")
+    return counts
+
+
+def _orb_bank_agreement(frame, dev, params):
+    """Keypoint overlap and rBRIEF bit agreement of one frame's ORB bank
+    on the card and on this machine's CPU."""
+    banks = [visual_frontend.detect_and_describe(
+        torch.as_tensor(frame, device=d), params) for d in (dev, "cpu")]
+    rows = [{tuple(p): w for p, w, m in zip(
+        xy.cpu().numpy(), desc.cpu().numpy(), mask.cpu().numpy()) if m}
+        for xy, desc, mask in banks]
+    shared = sorted(set(rows[0]) & set(rows[1]))
+    overlap = len(shared) / max(len(rows[0]), len(rows[1]))
+    bits = [np.unpackbits(np.stack([r[k] for k in shared]).view(np.uint8),
+                          axis=1) for r in rows]
+    same = float((bits[0] == bits[1]).mean())
+    rows_same = float((bits[0] == bits[1]).all(1).mean())
+    return len(rows[0]), len(rows[1]), overlap, same, rows_same
+
+
+def phase_orb(frames, dev, smi, popc_rate):
+    """The 752x480 sequence through FrontendParams(method="orb")."""
+    orb = visual_frontend.FrontendParams(method="orb")
+    n_card, n_cpu, overlap, same, rows_same = _orb_bank_agreement(
+        frames[1], dev, orb)
+    check(overlap >= ORB_AGREE and same >= ORB_AGREE,
+          f"orb: card vs CPU keypoint overlap {overlap:.4f}, rBRIEF bits "
+          f"equal {same:.5f} (>= {ORB_AGREE})")
+    # the top-2 at ORB's W = 8 on two consecutive frames' banks
+    _, d_prev, _ = visual_frontend.detect_and_describe(
+        torch.as_tensor(frames[0], device=dev), orb)
+    _, d_curr, m_curr = visual_frontend.detect_and_describe(
+        torch.as_tensor(frames[1], device=dev), orb)
+    check(d_curr.shape == (512, 8), f"orb: bank of shape {d_curr.shape}")
+    stats = {"mismatches": 0, "max_abs_err": 0.0}
+    _exact("orb: top-2 512x512x8", hamming.hamming_top2(d_prev, d_curr, m_curr),
+           hamming.hamming_top2_reference(d_prev, d_curr, m_curr), stats)
+    ops = (d_prev, d_curr, m_curr)
+    ms = _time_calls(hamming.hamming_top2, [ops], 50)
+    plain_ms = _time_calls(hamming.hamming_top2_reference, [ops], 50)
+    bound_ms, bound_by = bound(2 * 512 * 8 * 4 + 512 + 3 * 512 * 4,
+                               512 * 512 * 8, popc_rate)
+
+    def run(plain):
+        with _top2(plain):
+            return _synced(lambda: visual_frontend.track_sequence(
+                frames, params=orb, generator=_gen(dev, 0), device=dev))
+
+    reset_launches()
+    tracks, dt = run(plain=False)
+    counts = launch_counts()
+    want = dict(segmm_g_a=0, seg_reduce=0, seg_broadcast=0,
+                hamming_top2=len(frames), hamming_table=0)
+    check(counts == want, f"orb: launches {counts}, expected {want}")
+    tracks_p, dt_p = run(plain=True)
+    check(np.array_equal(tracks, tracks_p), "orb: tracks with the top-2 "
+          "kernel and with its plain version differ")
+    rows, n_ids, mean_len = _track_stats(tracks)
+    check(n_ids >= ORB_MIN_IDS and mean_len >= ORB_MIN_MEAN_LENGTH,
+          f"orb: {n_ids} track ids (>= {ORB_MIN_IDS}), mean length "
+          f"{mean_len:.3f} (>= {ORB_MIN_MEAN_LENGTH})")
+
+    img = torch.as_tensor(frames[1], device=dev).to(torch.float32)
+    det = detect_orb_pyramid(img, orb.orb)
+    state = visual_frontend._frontend_step(
+        tracker_init(orb.tracker, 8, device=dev),
+        torch.as_tensor(frames[0], device=dev), 0.0, _gen(dev, 1), orb)
+    gen = _gen(dev, 2)
+    layers = {
+        "pyramid + detect": lambda: detect_orb_pyramid(img, orb.orb),
+        "describe (pyramid + rBRIEF)": lambda: orb_describe_pyramid(
+            img, det[0], det[2], det[3], det[4], orb.orb.scale_factor,
+            orb.orb.num_levels, orb.orb_desc),
+        "top-2 match": lambda: hamming.hamming_top2(d_prev, d_curr, m_curr),
+        "whole frame step": lambda: visual_frontend._frontend_step(
+            state, torch.as_tensor(frames[1], device=dev), 1.0, gen, orb),
+    }
+    parts = "; ".join(f"{k} {_median_ms(fn, 10):.3f}"
+                      for k, fn in layers.items())
+    print(f"orb: one 752x480 frame, FrontendParams(method='orb'): {n_card} "
+          f"keypoints on the card, {n_cpu} on the CPU, overlap {overlap:.4f}; "
+          f"rBRIEF bits of the shared ones equal {same:.5f} (rows "
+          f"{rows_same:.4f}; bound {ORB_AGREE})")
+    print(f"orb: top-2 512x512x8 equals its plain version exactly; "
+          f"{ms:.4f} ms (kernel) vs {plain_ms:.4f} ms (plain); bound "
+          f"{bound_ms:.6f} ms ({bound_by}), device time | {smi}")
+    print(f"orb: {len(frames)} frames tracked: launches {counts} (1 top-2 per "
+          f"frame), tracks identical to the plain top-2 run: {rows} rows, "
+          f"{n_ids} ids (>= {ORB_MIN_IDS}), mean length {mean_len:.3f} (>= "
+          f"{ORB_MIN_MEAN_LENGTH}); {len(frames) / dt:.3f} frames/s with the "
+          f"kernel, {len(frames) / dt_p:.3f} with the plain top-2 | {smi}")
+    print(f"orb: ms per 752x480 frame by layer: {parts} | {smi}")
+    stats.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                 bound_by=bound_by)
+    return stats
+
+
+def _planted(rng, n_train, n_query, replace):
+    """bench.py's bench_lsh banks: numpy uint32 words, queries are train rows
+    (drawn with or without replacement) with LSH_FLIPS random bits
+    flipped, in bench.py's order of draws."""
+    d2 = rng.integers(0, 2**32, (n_train, LSH_WORDS), dtype=np.uint32)
+    if replace:
+        src = rng.integers(0, n_train, n_query)
+        d1 = d2[src].copy()
+        flips = rng.integers(0, LSH_WORDS * 32, (n_query, LSH_FLIPS))
+    else:
+        src = rng.choice(n_train, n_query, replace=False)
+        d1 = d2[src].copy()
+        flips = np.stack([rng.integers(0, LSH_WORDS * 32, LSH_FLIPS)
+                          for _ in range(n_query)])
+    rows = np.repeat(np.arange(n_query), LSH_FLIPS)
+    bits = flips.reshape(-1)
+    np.bitwise_xor.at(d1, (rows, bits // 32),
+                      np.left_shift(np.uint32(1), (bits % 32).astype(np.uint32)))
+    return d1, d2, src
+
+
+def _popcount_oracle(d1, d2):
+    """Exact nearest train row (first of equals) of every query, by XOR and
+    a numpy byte popcount on the host."""
+    table = np.array([bin(i).count("1") for i in range(256)], np.uint8)
+    out = np.empty(len(d1), np.int64)
+    for lo in range(0, len(d1), 16):
+        x = np.bitwise_xor(d1[lo:lo + 16, None, :], d2[None, :, :])
+        counts = table[x.view(np.uint8)].sum(-1, dtype=np.int32)
+        out[lo:lo + 16] = counts.argmin(1)
+    return out
+
+
+def _index_equal(a, b):
+    return (torch.equal(a.sorted_ids.cpu(), b.sorted_ids)
+            and torch.equal(a.offsets.cpu(), b.offsets))
+
+
+def phase_lsh(dev, smi):
+    """bench.py's two LSH configurations."""
+    rng = np.random.default_rng(3)
+    d1, d2, src = _planted(rng, LSH_N, LSH_N, replace=True)
+    p = flann.FLANNParams(bucket_capacity=32)
+    t1, t2 = (torch.as_tensor(x.view(np.int32), device=dev) for x in (d1, d2))
+    m = torch.ones(LSH_N, dtype=torch.bool, device=dev)
+    reset_launches()
+    index = flann.build_lsh_index(t2, m, p)
+    idx2, valid, diag = flann.lsh_match(t1, m, index, p)
+    counts = launch_counts()
+    check(not any(counts.values()), f"lsh: the LSH path launched {counts}")
+    cpu_index = flann.build_lsh_index(t2.cpu(), m.cpu(), p)
+    check(_index_equal(index, cpu_index), "lsh: the card's index differs "
+          "from the CPU's")
+    idx_c, valid_c, _ = flann.lsh_match(t1.cpu(), m.cpu(), cpu_index, p)
+    check(torch.equal(idx2.cpu(), idx_c) and torch.equal(valid.cpu(), valid_c),
+          "lsh: the card's matches differ from the CPU's")
+    recall = float(((idx2.cpu().numpy() == src) & valid.cpu().numpy()).mean())
+    build_s = np.median([_synced(lambda: flann.build_lsh_index(t2, m, p))[1]
+                         for _ in range(3)])
+    query_s = np.median([_synced(lambda: flann.lsh_match(t1, m, index, p))[1]
+                         for _ in range(3)])
+    # the exact yardstick: the top-2 kernel at 16,384^2 x 16
+    stats = {"mismatches": 0, "max_abs_err": 0.0}
+    reset_launches()
+    exact = hamming.hamming_top2(t1, t2, m)
+    check(launch_counts()["hamming_top2"] == 1, "lsh: no top-2 launch")
+    _exact("lsh: top-2 16384x16384x16", exact,
+           hamming.hamming_top2_reference(t1, t2, m), stats)
+    exact_ms = _time_calls(hamming.hamming_top2, [(t1, t2, m)], 5)
+    exact_recall = float((exact[2].cpu().numpy() == src).mean())
+    print(f"lsh: {LSH_N}x{LSH_N}x{LSH_WORDS} planted banks ({LSH_FLIPS} "
+          f"flips), FLANNParams(bucket_capacity=32): index built in "
+          f"{build_s:.4f} s, equal to the CPU's bit for bit, as are the "
+          f"matches; {LSH_N / query_s:.0f} matches/s, recall of the planted "
+          f"rows {recall:.4f}, mean candidates "
+          f"{float(diag['num_candidates'].float().mean()):.1f}; no package "
+          f"kernel launched | {smi}")
+    print(f"lsh: exact yardstick, the top-2 kernel at "
+          f"{LSH_N}x{LSH_N}x{LSH_WORDS}: equal to its plain version, "
+          f"{exact_ms:.4f} ms device time (LSH query {1e3 * query_s:.4f} ms "
+          f"of wall: {exact_ms / (1e3 * query_s):.3f}x), nearest-row recall "
+          f"{exact_recall:.4f} | {smi}")
+
+    d1q, d2m, src2 = _planted(rng, LSH_MAP, LSH_QUERIES, replace=False)
+    xyq = torch.as_tensor(rng.uniform(0, 752, (LSH_QUERIES, 2)).astype(
+        np.float32), device=dev)
+    xym = torch.as_tensor(rng.uniform(0, 752, (LSH_MAP, 2)).astype(
+        np.float32), device=dev)
+    q, mp_bank = (torch.as_tensor(x.view(np.int32), device=dev)
+                  for x in (d1q, d2m))
+    mq = torch.ones(LSH_QUERIES, dtype=torch.bool, device=dev)
+    mm = torch.ones(LSH_MAP, dtype=torch.bool, device=dev)
+    mp = matcher.MatcherParams(method="lsh", auto_remove_outliers=False)
+    reset_launches()
+    (i65, v65, d65), dt65 = _synced(lambda: matcher.match_descriptors(
+        q, mp_bank, xyq, xym, mq, mm, None, mp))
+    check(not any(launch_counts().values()), "lsh: the relocalization "
+          "launched a package kernel")
+    i65c, v65c, _ = matcher.match_descriptors(
+        q.cpu(), mp_bank.cpu(), xyq.cpu(), xym.cpu(), mq.cpu(), mm.cpu(),
+        None, mp)
+    check(torch.equal(i65.cpu(), i65c) and torch.equal(v65.cpu(), v65c),
+          "lsh: the 65,536 relocalization differs from the CPU's")
+    check(_index_equal(flann.build_lsh_index(mp_bank, mm, flann.FLANNParams()),
+                       flann.build_lsh_index(mp_bank.cpu(), mm.cpu(),
+                                             flann.FLANNParams())),
+          "lsh: the 65,536 index differs from the CPU's")
+    i65, v65 = i65.cpu().numpy(), v65.cpu().numpy()
+    oracle = _popcount_oracle(d1q, d2m)
+    recall65 = float(((i65 == src2) & v65).mean())
+    agree = float((i65[v65] == oracle[v65]).mean())
+    check(recall65 > 0.5 and agree > 0.99, f"lsh: 65,536 map recall "
+          f"{recall65:.4f}, agreement with the exact oracle {agree:.4f}")
+    dt65 = np.median([dt65] + [_synced(lambda: matcher.match_descriptors(
+        q, mp_bank, xyq, xym, mq, mm, None, mp))[1] for _ in range(2)])
+    print(f"lsh: one {LSH_QUERIES}-keypoint frame against a {LSH_MAP} map "
+          f"through MatcherParams(method='lsh'): {1 / dt65:.2f} frames/s "
+          f"(index build included), recall of the planted rows "
+          f"{recall65:.4f}, agreement with the exact numpy oracle {agree:.4f}"
+          f"; matches and index equal to the CPU's | {smi}")
+    return stats
+
+
+def phase_vo_pair(dev, smi):
+    """two_frame_pose on frames 0 and 2 of the orb sequence."""
+    a, b, K, R_true = bench_frontend.vo_pair(bench_frontend.EUROC_FRONTEND,
+                                             seed=0, i=0, j=2)
+    img1, img2 = (torch.as_tensor(x, device=dev) for x in (a, b))
+    Kt = torch.as_tensor(K, dtype=torch.float32, device=dev)
+    reset_launches()
+    results, times = [], []
+    for s in range(VO_SEEDS):
+        res, dt = _synced(lambda: vo_frontend.two_frame_pose(
+            img1, img2, Kt, _gen(dev, s)))
+        results.append(res)
+        times.append(dt)
+    counts = launch_counts()
+    check(counts["hamming_top2"] == VO_SEEDS and counts["hamming_table"] == 0,
+          f"vo_pair: launches {counts} in {VO_SEEDS} pairs")
+    errs = [bench_frontend.rotation_error(r.T_21.rotation().cpu().numpy(),
+                                          R_true) for r in results]
+    med = float(np.median(errs))
+    check(med <= 1.5 * JAX_VO_ROT_ERR + 1e-3, f"vo_pair: median rotation "
+          f"error {med} rad against the JAX package's {JAX_VO_ROT_ERR}")
+    with _top2(plain=True):
+        plain = vo_frontend.two_frame_pose(img1, img2, Kt, _gen(dev, 0))
+    check(torch.equal(plain.inliers, results[0].inliers),
+          "vo_pair: the plain top-2 gives other inliers")
+    _, syncs = _sync_free(lambda: vo_frontend.two_frame_pose(
+        img1, img2, Kt, _gen(dev, 0)))
+    sites = collections.Counter()
+    for k, v in syncs.items():
+        sites[f"{Path(k).name}:{k.rsplit(':', 1)[1]}"] += v
+    print(f"vo_pair: frames 0 and 2 (752x480, true rotation "
+          f"{bench_frontend.rotation_error(np.eye(3), R_true):.4f} rad) "
+          f"through two_frame_pose, {VO_SEEDS} generators: launches {counts} "
+          f"(1 top-2 per pair); rotation error median {med:.5f} rad (runs "
+          f"{', '.join(f'{e:.4f}' for e in errs)}; the JAX package's median "
+          f"{JAX_VO_ROT_ERR:.5f}, bound 1.5x + 1e-3); "
+          f"{int(results[0].diagnostics['num_good_matches'])} ratio-test "
+          f"matches, {int(results[0].inliers.sum())} inliers; "
+          f"{1e3 * np.median(times):.3f} ms per pair; synchronizing calls "
+          f"per pair {sum(sites.values())}: "
+          f"{', '.join(f'{k} x{v}' for k, v in sorted(sites.items()))} | "
+          f"{smi}")
+    return counts
+
+
+def phase_batched(frames, dev, smi):
+    """B copies of the orb sequence through track_sequences_batched."""
+    params = visual_frontend.FrontendParams()
+    stack = np.stack([frames] * BATCH)
+    T = len(frames)
+    reset_launches()
+    out, dt_b = _synced(lambda: visual_frontend.track_sequences_batched(
+        stack, params=params, device=dev,
+        generators=[_gen(dev, b) for b in range(BATCH)]))
+    counts = launch_counts()
+    want = dict(segmm_g_a=0, seg_reduce=0, seg_broadcast=0,
+                hamming_top2=BATCH * T, hamming_table=0)
+    check(counts == want, f"batched: launches {counts}, expected {want}")
+    singles = []
+    for b in range(BATCH):
+        one, dt = _synced(lambda: visual_frontend.track_sequence(
+            frames, params=params, generator=_gen(dev, b), device=dev))
+        check(np.array_equal(out[b], one), f"batched: sequence {b}'s tracks "
+              f"({len(out[b])} rows) differ from track_sequence's "
+              f"({len(one)} rows)")
+        singles.append(dt)
+    _, dt_b2 = _synced(lambda: visual_frontend.track_sequences_batched(
+        stack, params=params, device=dev,
+        generators=[_gen(dev, b) for b in range(BATCH)]))
+    dt_b = min(dt_b, dt_b2)
+    rows = [len(t) for t in out]
+    print(f"batched: {BATCH} copies of the {T}-frame 752x480 sequence, "
+          f"FrontendParams(), one generator each: launches {counts} (the "
+          f"top-2 once per sequence per frame); every sequence's tracks equal "
+          f"track_sequence's with its generator ({min(rows)}-{max(rows)} "
+          f"rows); {BATCH * T / dt_b:.3f} frames/s aggregate against "
+          f"{T / np.median(singles):.3f} one sequence at a time "
+          f"({np.median(singles) * BATCH / dt_b:.3f}x) | {smi}")
+    return counts
+
+
 def _kernel_entry(name, source, replaces, n_launches, stats):
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
@@ -2182,6 +2774,11 @@ def main():
     ham = phase_hamming(frames, dev, smi, popc_rate)
     table_launches = phase_pair(dev, smi)
     top2_launches = phase_sequence(frames, dev, smi)
+    phase_pixels(dev, smi)
+    phase_orb(frames, dev, smi, popc_rate)
+    phase_lsh(dev, smi)
+    phase_vo_pair(dev, smi)
+    phase_batched(frames, dev, smi)
     print(f"chip_smoke: every phase passed in "
           f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [

@@ -7,7 +7,8 @@ Two generators, numpy only:
   ``np.roll(img, (4, 7), axis=(0, 1))``);
 - :func:`make_euroc_frames`: the cam0 frames that
   ``generate_euroc_sequence`` renders into PNGs
-  (``sim.euroc_sim.cam0_frames``), without writing them.
+  (``sim.euroc_sim.cam0_frames``), without writing them; :func:`vo_pair`
+  two of them with their true relative rotation, for two-frame VO.
   With the JAX package run at f64 (``jax_enable_x64``) the frames are
   bit-identical to its PNGs.
 
@@ -28,7 +29,11 @@ import time
 import numpy as np
 import torch
 
-from libwave_tpu_torch.sim.euroc_sim import EurocSimParams, cam0_frames
+from libwave_tpu_torch.sim.euroc_sim import (
+    EurocSimParams,
+    cam0_frames,
+    cam0_poses,
+)
 
 
 def blob_image(rng, H=480, W=640, n_blobs=250):
@@ -60,6 +65,24 @@ def make_euroc_frames(params: EurocSimParams = EUROC_FRONTEND,
     """(T, height_px, width) uint8 cam0 frames of the simulated EuRoC
     sequence (``euroc_sim.cam0_frames``)."""
     return cam0_frames(params, seed)
+
+
+def vo_pair(params: EurocSimParams = EUROC_FRONTEND, seed: int = 0,
+            i: int = 0, j: int = 2):
+    """Frames ``i`` and ``j`` of the simulated sequence as uint8 images, its
+    intrinsics K (3, 3) and the true relative rotation R_21 (camera-1
+    coordinates into camera-2's), for ``two_frame_pose``."""
+    frames = cam0_frames(params, seed)
+    R, _ = cam0_poses(params)
+    K = np.array([[params.fx, 0, params.cx], [0, params.fy, params.cy],
+                  [0, 0, 1.0]])
+    return frames[i], frames[j], K, R[j].T @ R[i]
+
+
+def rotation_error(R_est, R_true) -> float:
+    """Angle in radians of R_estᵀ R_true."""
+    c = (np.trace(np.asarray(R_est, np.float64).T @ R_true) - 1.0) / 2.0
+    return float(np.arccos(np.clip(c, -1.0, 1.0)))
 
 
 def top2_edge_cases(seed: int = 4):

@@ -37,7 +37,7 @@ class LandmarkBuffer(NamedTuple):
 
     @property
     def capacity(self) -> int:
-        return self.times.shape[0]
+        return self.times.shape[-1]
 
 
 def landmark_buffer(capacity: int, value_dim: int = 2, dtype=torch.float32,
@@ -115,23 +115,32 @@ def insert_landmark_batch(buf: LandmarkBuffer, times, sensor_ids, landmark_ids,
                           images, values, mask=None) -> LandmarkBuffer:
     """Bulk insert N observations at consecutive ring slots from the cursor.
     ``mask`` marks the real rows: they are compacted into consecutive slots
-    and the masked rows consume none."""
+    and the masked rows consume none. A batch of buffers (leading dimension
+    B on every field, ``cursor`` (B,)) takes rows (B, N), each buffer its
+    own."""
     times = _as(times, buf.times)
-    n = times.shape[0]
+    lead = buf.cursor.shape
+    k = len(lead)
+    n = times.shape[-1]
     if mask is None:
-        mask = torch.ones((n,), dtype=torch.bool, device=times.device)
+        mask = torch.ones(times.shape, dtype=torch.bool, device=times.device)
     m32 = mask.to(torch.int32)
-    offsets = torch.cumsum(m32, 0) - m32  # valid rows before each row
-    slots = ((buf.cursor + offsets) % buf.capacity).to(torch.int64)
+    offsets = torch.cumsum(m32, -1) - m32  # valid rows before each row
+    C = buf.capacity
+    slots = ((buf.cursor[..., None] + offsets) % C).to(torch.int64)
     # masked rows go to a scratch slot at index C, dropped after the write
-    slots = torch.where(mask, slots, buf.capacity)
+    slots = torch.where(mask, slots, C)
+    grid = torch.meshgrid(
+        *(torch.arange(d, device=slots.device) for d in lead + (n,)),
+        indexing="ij")[:k]
+    index = tuple(grid) + (slots,)
 
     def upd(arr, vals):
-        vals = _as(vals, arr).expand((n,) + arr.shape[1:])
-        ext = torch.cat([arr, arr[:1]])
-        return ext.index_put_((slots,), vals)[: buf.capacity]
+        vals = _as(vals, arr).expand(lead + (n,) + arr.shape[k + 1:])
+        ext = torch.cat([arr, arr.narrow(k, 0, 1)], dim=k)
+        return ext.index_put_(index, vals).narrow(k, 0, C)
 
-    n_new = torch.sum(m32)
+    n_new = torch.sum(m32, dim=-1)
     return LandmarkBuffer(
         times=upd(buf.times, times),
         sensor_ids=upd(buf.sensor_ids, sensor_ids),
@@ -139,7 +148,7 @@ def insert_landmark_batch(buf: LandmarkBuffer, times, sensor_ids, landmark_ids,
         images=upd(buf.images, images),
         values=upd(buf.values, values),
         valid=upd(buf.valid, mask),
-        cursor=((buf.cursor + n_new) % buf.capacity).to(torch.int32),
+        cursor=((buf.cursor + n_new) % C).to(torch.int32),
     )
 
 

@@ -11,7 +11,8 @@ never import JAX.
 - :func:`desc_from_numpy`/:func:`desc_to_numpy`: descriptor banks, numpy
   uint32 words <-> the port's int32 words with the same bits;
 - :func:`params_from_jax`: a parameter dataclass, field by field, into the
-  port's dataclass of the same name;
+  port's dataclass of the same name (the front end's, ORB's, LSH's and the
+  two-frame VO's);
 - :func:`vo_dataset_from_jax_numpy`, :func:`pim_from_jax_numpy`,
   :func:`vio_problem_from_jax_numpy`, :func:`vio_state_from_jax_numpy`: the
   VIO slice's ``VoDataset``, ``PreintegratedImu``, ``VIOProblem`` and
@@ -35,10 +36,12 @@ from libwave_tpu_torch.optim.ba import BAProblem, BAState
 from libwave_tpu_torch.optim.imu import PreintegratedImu
 from libwave_tpu_torch.pipelines.vio import VIOProblem, VIOState
 from libwave_tpu_torch.pipelines.visual_frontend import FrontendParams
+from libwave_tpu_torch.pipelines.vo_frontend import VOFrontendConfig
 from libwave_tpu_torch.sim.vo_dataset import VoDataset
 from libwave_tpu_torch.utils.device import resolve
 from libwave_tpu_torch.vision.descriptor import BRISKParams, ORBDescriptorParams
 from libwave_tpu_torch.vision.detector import FASTParams, ORBDetectorParams
+from libwave_tpu_torch.vision.flann import FLANNParams
 from libwave_tpu_torch.vision.matcher import MatcherParams
 from libwave_tpu_torch.vision.tracker import TrackerParams, TrackerState
 
@@ -46,7 +49,7 @@ _PARAMS = {
     cls.__name__: cls
     for cls in (FASTParams, ORBDetectorParams, BRISKParams,
                 ORBDescriptorParams, MatcherParams, TrackerParams,
-                FrontendParams)
+                FrontendParams, FLANNParams, VOFrontendConfig)
 }
 
 
@@ -152,8 +155,9 @@ def tracker_state_from_jax_numpy(state, device=None) -> TrackerState:
 def params_from_jax(params):
     """A front-end parameter dataclass of the JAX package (FASTParams,
     BRISKParams, MatcherParams, TrackerParams, FrontendParams, the ORB
-    parameters) as the port's dataclass of the same name, field by field;
-    nested parameter dataclasses cross too."""
+    parameters, FLANNParams, VOFrontendConfig) as the port's dataclass of
+    the same name, field by field; nested parameter dataclasses (a
+    MatcherParams' ``flann`` included) cross too."""
     cls = _PARAMS[type(params).__name__]
     kw = {}
     for f in dataclasses.fields(params):

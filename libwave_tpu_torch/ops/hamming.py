@@ -34,15 +34,19 @@ _WORDS = (1, 2, 4, 8, 16, 32)  # descriptor widths the kernels are built for
 _CHUNK_BYTES = 1 << 26  # bytes of XOR words per chunk of the plain versions
 
 
-def _popcount_rows(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """(c, W) x (N2, W) int32 words -> (c, N2) int32 Hamming distances:
-    XOR, then a bitwise popcount of every byte of a uint8 view, summed."""
-    x = torch.bitwise_xor(a[:, None, :], b[None, :, :]).contiguous()
-    x = x.view(torch.uint8)
+def popcount_words(x: torch.Tensor) -> torch.Tensor:
+    """(..., W) int32 words -> (...) int32 count of set bits: a bitwise
+    popcount of every byte of a uint8 view (no sign extension), summed."""
+    x = x.contiguous().view(torch.uint8)
     x = x - ((x >> 1) & 0x55)
     x = (x & 0x33) + ((x >> 2) & 0x33)
     x = (x + (x >> 4)) & 0x0F
     return x.sum(-1, dtype=torch.int32)
+
+
+def _popcount_rows(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """(c, W) x (N2, W) int32 words -> (c, N2) int32 Hamming distances."""
+    return popcount_words(torch.bitwise_xor(a[:, None, :], b[None, :, :]))
 
 
 def _row_chunks(n1: int, n2: int, w: int):

@@ -7,6 +7,7 @@ from libwave_tpu_torch.pipelines.euroc_vio import (  # noqa: F401
     build_euroc_vio_problem,
     default_vio_config,
     run_euroc_vio,
+    run_euroc_vio_from_images,
 )
 from libwave_tpu_torch.pipelines.vio import (  # noqa: F401
     VIOConfig,
@@ -32,7 +33,13 @@ from libwave_tpu_torch.pipelines.visual_frontend import (  # noqa: F401
     FrontendParams,
     detect_and_describe,
     track_sequence,
+    track_sequences_batched,
     tracks_from_state,
+)
+from libwave_tpu_torch.pipelines.vo_frontend import (  # noqa: F401
+    TwoFrameResult,
+    VOFrontendConfig,
+    two_frame_pose,
 )
 from libwave_tpu_torch.pipelines.lidar_odometry import (  # noqa: F401
     LidarOdometryConfig,

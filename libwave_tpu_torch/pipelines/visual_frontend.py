@@ -1,16 +1,19 @@
 """Image-sequence front end: pixels -> persistent feature tracks (port of
 ``libwave_tpu.pipelines.visual_frontend``).
 
-Per frame: FAST detect -> BRISK describe -> Hamming match (the fused top-2
-kernel on the card) + ratio test + RANSAC -> masked ID inheritance into the
-landmark buffer. The resulting track bank exports as the framework's
-(frame, landmark_id, u, v) array.
+Per frame: FAST detect -> BRISK describe (or the ORB pyramid and its
+scale-aware rBRIEF) -> Hamming match (the fused top-2 kernel on the card) +
+ratio test + RANSAC -> masked ID inheritance into the landmark buffer. The
+resulting track bank exports as the framework's (frame, landmark_id, u, v)
+array.
 
 The reference runs the sequence either as one ``lax.scan`` program or as one
 jitted step per frame. PyTorch runs eagerly, so both values of ``scan`` run
 the same per-frame loop; they differ only in whether the uint8 stack goes to
-the device at once. The ORB front end (``method="orb"``) and the batched
-mode (``track_sequences_batched``) are not ported yet (see ROADMAP.md).
+the device at once. ``track_sequences_batched`` (the reference's ``vmap``
+over sequences) runs B sequences through the same step with a leading batch
+dimension: one detect/describe per frame for all of them, the top-2 kernel
+and RANSAC once per sequence, one generator per sequence.
 """
 
 from __future__ import annotations
@@ -23,13 +26,17 @@ import torch
 from libwave_tpu_torch.vision.descriptor import (
     BRISKParams,
     ORBDescriptorParams,
+    _brief_pattern,
     _brisk_pattern,
     brisk_describe,
+    orb_describe_pyramid,
 )
 from libwave_tpu_torch.vision.detector import (
     FASTParams,
     ORBDetectorParams,
+    build_pyramid,
     detect_fast,
+    detect_orb_pyramid,
 )
 from libwave_tpu_torch.utils.device import resolve
 from libwave_tpu_torch.vision.tracker import (
@@ -43,6 +50,7 @@ __all__ = [
     "FrontendParams",
     "detect_and_describe",
     "track_sequence",
+    "track_sequences_batched",
     "tracks_from_state",
 ]
 
@@ -56,7 +64,7 @@ class FrontendParams:
     ``Tracker<TDetector, TDescriptor, TMatcher>`` (tracker.hpp:34).
 
     ``method``: "fast_brisk" (FAST corners + BRISK descriptors) or "orb"
-    (accepted, but not ported yet: running it raises)."""
+    (multi-level oFAST/Harris pyramid + scale-aware rBRIEF)."""
 
     method: str = "fast_brisk"
     fast: FASTParams = dataclasses.field(
@@ -87,14 +95,21 @@ class FrontendParams:
 
 
 def detect_and_describe(image: torch.Tensor, params: FrontendParams):
-    """One frame's (xy, desc, mask) bank. Accepts uint8 or float frames;
-    integer frames are cast to f32 on their own device."""
-    if params.method == "orb":
-        raise NotImplementedError(
-            "the ORB front end (method='orb') is not ported yet: see ROADMAP.md"
-        )
+    """One frame's (xy, desc, mask) bank, or a batch of frames' (leading
+    dimensions). Accepts uint8 or float frames; integer frames are cast to
+    f32 on their own device."""
     if not image.is_floating_point():
         image = image.to(torch.float32)
+    if params.method == "orb":
+        levels = build_pyramid(image, params.orb.scale_factor,
+                               params.orb.num_levels)
+        xy, _, angle, level, m = detect_orb_pyramid(image, params.orb, levels)
+        desc, m = orb_describe_pyramid(
+            image, xy, angle, level, m,
+            params.orb.scale_factor, params.orb.num_levels, params.orb_desc,
+            levels,
+        )
+        return xy, desc, m
     xy, _, m = detect_fast(image, params.fast)
     desc, m = brisk_describe(image, xy, m, params.brisk)
     return xy, desc, m
@@ -108,6 +123,9 @@ def _frontend_step(state: TrackerState, image, time, generator,
 
 
 def _desc_words(params: FrontendParams) -> int:
+    if params.method == "orb":
+        a, _ = _brief_pattern(params.orb_desc)
+        return (len(a) + 31) // 32
     _, _, short, _ = _brisk_pattern(params.brisk)
     return (len(short) + 31) // 32
 
@@ -148,6 +166,57 @@ def track_sequence(frames, times=None,
         state = _frontend_step(state, frames[i].to(device), times32[i],
                                generator, params)
     return tracks_from_state(state)
+
+
+def track_sequences_batched(frames, times=None,
+                            params: FrontendParams = FrontendParams(),
+                            generators=None, device=None) -> list:
+    """Track a batch of sequences, a (B, T, H, W) stack, with a leading batch
+    dimension through the per-frame step (the reference's vmapped
+    whole-sequence program, the throughput mode: the per-frame chain is
+    sequential, sequences are not). Returns a list of B (K, 4) track
+    arrays, sequence b's equal to ``track_sequence(frames[b],
+    generator=generators[b])``.
+
+    ``generators``: B ``torch.Generator``s on ``device`` (default: one per
+    sequence, sequence b's seeded with b). ``times`` (B, T) or (T,) defaults
+    to the frame index. The stack goes to ``device`` in its own dtype.
+    """
+    device = resolve(device)
+    if not isinstance(frames, torch.Tensor):
+        frames = torch.from_numpy(np.ascontiguousarray(frames))
+    B, T = frames.shape[:2]
+    if times is None:
+        times = np.arange(T, dtype=np.float64)
+    times32 = torch.as_tensor(
+        np.broadcast_to(np.asarray(times, np.float32), (B, T)).copy(),
+        device=device)
+    if generators is None:
+        generators = [torch.Generator(device=device).manual_seed(b)
+                      for b in range(B)]
+    if len(generators) != B:
+        raise ValueError(f"{len(generators)} generators for {B} sequences")
+    frames = frames.to(device)
+
+    one = tracker_init(params.tracker, desc_words=_desc_words(params),
+                       device=device)
+    state = TrackerState(*(
+        type(x)(*(f.expand((B,) + f.shape).clone() for f in x))
+        if isinstance(x, tuple) else x.expand((B,) + x.shape).clone()
+        for x in one
+    ))
+    for i in range(T):
+        state = _frontend_step(state, frames[:, i], times32[:, i],
+                               generators, params)
+    return [tracks_from_state(_sequence(state, b)) for b in range(B)]
+
+
+def _sequence(state: TrackerState, b: int) -> TrackerState:
+    """Sequence ``b``'s tracker state of a batched one."""
+    return TrackerState(*(
+        type(x)(*(f[b] for f in x)) if isinstance(x, tuple) else x[b]
+        for x in state
+    ))
 
 
 def tracks_from_state(state: TrackerState) -> np.ndarray:

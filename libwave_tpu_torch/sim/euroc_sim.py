@@ -19,8 +19,9 @@ The trajectory, the landmarks and their projection run on the host in
 f64, with this package's ``geometry.so3`` for the quaternion products and
 rotation matrices (the reference's formulas). :func:`cam0_frames` renders
 the cam0 frames without writing them (``bench_frontend``'s sequence);
-``render_images=True`` writes them as PNGs too and needs PIL, imported
-only then.
+``render_images=True`` writes them as 8-bit grayscale PNGs too, through
+this package's own ``vision.images.save_png`` (no imaging library): the
+pixels the JAX package's PIL writes, the file bytes may differ.
 """
 
 from __future__ import annotations
@@ -35,6 +36,7 @@ from libwave_tpu_torch.geometry import so3
 from libwave_tpu_torch.optim.imu import simulate_imu
 from libwave_tpu_torch.sim.vo_dataset import q_BC as default_q_BC
 from libwave_tpu_torch.utils.device import resolve
+from libwave_tpu_torch.vision.images import save_png
 
 T0_NS = 1403636579758555392  # an MH_01-era epoch
 
@@ -186,6 +188,18 @@ def cam0_frames(params: EurocSimParams = EurocSimParams(),
     return _render(p, uv, vis, seed)
 
 
+def cam0_poses(params: EurocSimParams = EurocSimParams()):
+    """Ground-truth camera-to-world rotations (F, 3, 3) and positions (F, 3)
+    of the cam0 frames, host f64 (the poses the frames are rendered from)."""
+    p = params
+    n_imu = int(round(p.duration * p.imu_hz)) + 1
+    q, pos, _ = _trajectory(p, np.arange(n_imu) * (1.0 / p.imu_hz))
+    cam_idx = _camera_frames(p, n_imu)
+    qbc = default_q_BC(torch.float64, "cpu").numpy()
+    q_GC = _qmul(q[cam_idx], np.broadcast_to(qbc, q[cam_idx].shape).copy())
+    return so3.quat_to_rot(torch.from_numpy(q_GC)).numpy(), pos[cam_idx]
+
+
 def generate_euroc_sequence(root: str,
                             params: EurocSimParams = EurocSimParams(),
                             seed: int = 0, device=None):
@@ -290,14 +304,10 @@ def generate_euroc_sequence(root: str,
         )
 
     if p.render_images:
-        from PIL import Image
-
         frames = _render(p, uv_frames, vis_frames, seed)
         data_dir = os.path.join(cam_dir, "data")
         os.makedirs(data_dir, exist_ok=True)
         for fi, i in enumerate(cam_idx):
-            Image.fromarray(frames[fi]).save(
-                os.path.join(data_dir, f"{ts_ns[i]}.png")
-            )
+            save_png(os.path.join(data_dir, f"{ts_ns[i]}.png"), frames[fi])
 
     return lm

@@ -93,3 +93,17 @@ def f32_matmuls(fn):
             return fn(*args, **kwargs)
 
     return wrapped
+
+
+def per_item(fn, *args):
+    """``fn`` on each item of batched arguments, one call per item, the
+    outputs stacked (a tensor, or a tuple of tensors). A ``None`` argument
+    stays ``None``; a list (of generators, say) is indexed as a tensor is.
+    cuBLAS and cuSOLVER may pick another kernel, and so another summation
+    order, for a batch than for one item: this keeps each item's products
+    those of its own unbatched call."""
+    outs = [fn(*(None if a is None else a[b] for a in args))
+            for b in range(len(args[0]))]
+    if isinstance(outs[0], torch.Tensor):
+        return torch.stack(outs)
+    return tuple(torch.stack(o) for o in zip(*outs))

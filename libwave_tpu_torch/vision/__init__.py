@@ -1,17 +1,51 @@
-"""Visual front end (port of ``libwave_tpu.vision``'s FAST/BRISK/matcher/
-tracker path): FAST detection, BRISK description, Hamming matching with the
-ratio test and RANSAC, and the fixed-capacity feature tracker."""
+"""Visual front end (port of ``libwave_tpu.vision``): FAST and ORB
+detection, BRISK and rBRIEF description, Hamming matching (exact or LSH)
+with the ratio test and RANSAC, two-view epipolar geometry, the
+fixed-capacity feature tracker, the pinhole camera and PNG image
+sequences."""
 
+from libwave_tpu_torch.vision.camera import (  # noqa: F401
+    backproject,
+    focal_length,
+    in_image,
+    pinhole_project,
+    pinhole_project_frames,
+)
 from libwave_tpu_torch.vision.descriptor import (  # noqa: F401
     BRISKParams,
     ORBDescriptorParams,
     brisk_describe,
+    orb_describe,
+    orb_describe_pyramid,
 )
 from libwave_tpu_torch.vision.detector import (  # noqa: F401
     FASTParams,
     ORBDetectorParams,
+    build_pyramid,
     detect_fast,
+    detect_orb,
+    detect_orb_pyramid,
     fast_score,
+    harris_score,
+    orb_orientation,
+)
+from libwave_tpu_torch.vision.epipolar import (  # noqa: F401
+    decompose_essential,
+    essential_from_fundamental,
+    recover_pose,
+    triangulate,
+)
+from libwave_tpu_torch.vision.flann import (  # noqa: F401
+    FLANNParams,
+    LSHIndex,
+    build_lsh_index,
+    lsh_match,
+)
+from libwave_tpu_torch.vision.images import (  # noqa: F401
+    list_image_sequence,
+    load_image,
+    read_image_sequence,
+    save_png,
 )
 from libwave_tpu_torch.vision.matcher import (  # noqa: F401
     MatcherParams,

@@ -82,12 +82,14 @@ def tracker_init(params: TrackerParams, desc_words: int, dtype=torch.float32,
 
 def _scatter_last_wins(index: torch.Tensor, values: torch.Tensor, size: int,
                        fill: int) -> torch.Tensor:
-    """out[index[i]] = values[i], the largest i winning where indices repeat
-    (XLA's row-order scatter), ``fill`` where no row writes."""
-    rows = torch.arange(index.shape[0], device=index.device)
-    winner = torch.full((size,), -1, dtype=rows.dtype, device=index.device)
-    winner.scatter_reduce_(0, index, rows, "amax")
-    picked = values[torch.clamp(winner, min=0)]
+    """out[..., index[..., i]] = values[..., i], the largest i winning where
+    indices repeat (XLA's row-order scatter), ``fill`` where no row writes;
+    along the last dimension, any leading ones."""
+    rows = torch.arange(index.shape[-1], device=index.device).expand(index.shape)
+    winner = torch.full(index.shape[:-1] + (size,), -1, dtype=rows.dtype,
+                        device=index.device)
+    winner.scatter_reduce_(-1, index, rows, "amax")
+    picked = torch.gather(values, -1, torch.clamp(winner, min=0))
     return torch.where(winner >= 0, picked, torch.full_like(picked, fill))
 
 
@@ -97,33 +99,38 @@ def add_image_features(
     desc: torch.Tensor,
     mask: torch.Tensor,
     time,
-    generator: torch.Generator | None,
+    generator,
     params: TrackerParams,
     sample_idx: torch.Tensor | None = None,
 ) -> TrackerState:
     """Register one frame's detected features (the core of addImage after
     detectAndCompute). Returns the new tracker state; ``state`` is not
-    written. ``sample_idx`` fixes the RANSAC samples (tests)."""
+    written. ``sample_idx`` fixes the RANSAC samples (tests).
+
+    A batch of B trackers (every state field with a leading dimension B,
+    ``image_count`` (B,)) takes banks (B, N, ...), times (B,) and a list of
+    B generators: tracker b steps as it would alone."""
     N = params.num_features
     first = state.image_count == 0
+    lead = state.image_count.shape
 
     idx2, valid, _ = match_descriptors(
         state.prev_desc, desc, state.prev_xy, xy,
         state.prev_mask, mask, generator, params.matcher, sample_idx,
     )
-    valid = valid & ~first  # no matches into an empty tracker
+    valid = valid & ~first[..., None]  # no matches into an empty tracker
 
     # ID assignment per previous keypoint row (match query side)
     had_id = state.prev_ids >= 0
     needs_new = valid & ~had_id
     nn32 = needs_new.to(torch.int32)
-    new_rank = torch.cumsum(nn32, 0, dtype=torch.int32) - nn32
-    minted = state.next_id + new_rank
+    new_rank = torch.cumsum(nn32, -1, dtype=torch.int32) - nn32
+    minted = state.next_id[..., None] + new_rank
     prev_ids_updated = torch.where(needs_new, minted, state.prev_ids)
     ids_for_match = torch.where(
         valid, prev_ids_updated, torch.full_like(prev_ids_updated, -1)
     )
-    num_minted = torch.sum(nn32)
+    num_minted = torch.sum(nn32, dim=-1)
 
     # scatter IDs onto current keypoint rows (last row wins, see above)
     safe_idx2 = torch.where(valid, idx2, torch.zeros_like(idx2))
@@ -133,12 +140,15 @@ def add_image_features(
     dtype = state.prev_xy.dtype
     t = (time.to(device=img.device, dtype=dtype) if isinstance(time, torch.Tensor)
          else torch.full((), time, dtype=dtype, device=img.device))
+    t = t.expand(lead)
 
     def col(x):
-        return x.expand(N)
+        return x[..., None].expand(lead + (N,))
 
-    sensor = torch.full((N,), params.sensor_id, dtype=torch.int32,
+    sensor = torch.full(lead + (N,), params.sensor_id, dtype=torch.int32,
                         device=img.device)
+    matched_xy = torch.gather(
+        xy, -2, safe_idx2[..., None].expand(safe_idx2.shape + (2,)))
     # back-fill previous-frame measurements for newly-minted IDs
     # (impl/tracker.hpp:62-81), then insert current-frame measurements
     lm = insert_landmark_batch(
@@ -146,13 +156,13 @@ def add_image_features(
         col(img - 1), state.prev_xy, mask=needs_new,
     )
     lm = insert_landmark_batch(
-        lm, col(t), sensor, ids_for_match, col(img), xy[safe_idx2], mask=valid,
+        lm, col(t), sensor, ids_for_match, col(img), matched_xy, mask=valid,
     )
 
     # sliding window purge (impl/tracker.hpp:90-101): with window_size w and
     # images 0..img, drop measurements at images < img + 1 - w
     if params.window_size > 0:
-        cutoff = img + 1 - params.window_size
+        cutoff = (img + 1 - params.window_size)[..., None]
         purged = erase_older_than_image(lm, torch.clamp(cutoff, min=0))
         lm = lm._replace(valid=torch.where(cutoff > 0, purged.valid, lm.valid))
 

@@ -774,3 +774,97 @@ def test_identity_and_matrix_make_no_sync(cuda_device):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert torch.equal(M.cpu(), torch.eye(4).expand(5, 4, 4))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n1,n2", [(512, 512), (300, 700), (37, 1500)])
+def test_top2_kernel_at_orb_width(cuda_device, n1, n2):
+    """ORB's 256-bit rBRIEF banks are W = 8 words: the top-2 kernel equals
+    its plain version exactly there, masked and ragged."""
+    rng = np.random.default_rng(n1)
+    d2 = rng.integers(0, 2**32, (n2, 8), dtype=np.uint64).astype(np.uint32)
+    d1 = d2[rng.integers(0, n2, n1)].copy()
+    d1[::3] ^= np.uint32(1) << np.uint32(9)
+    mask = rng.random(n2) < 0.8
+    a, b = (torch.as_tensor(x.view(np.int32), device=cuda_device)
+            for x in (d1, d2))
+    m = torch.as_tensor(mask, device=cuda_device)
+    got = hamming.hamming_top2(a, b, m)
+    ref = hamming.hamming_top2_reference(a, b, m)
+    for g, r in zip(got, ref):
+        assert torch.equal(g, r)
+
+
+@pytest.mark.cuda
+def test_orb_frame_card_against_cpu(cuda_device):
+    """One 752x480 frame through ``method="orb"`` on the card and on the
+    CPU: keypoints by set overlap >= 99%, rBRIEF bits of the shared ones
+    >= 99% equal (the pyramid's f32 contractions round differently in
+    cuBLAS and on the CPU), 8-word banks; a tracked 4-frame sequence
+    launches the top-2 kernel once a frame."""
+    frames = bench_frontend.make_euroc_frames(
+        bench_frontend.EurocSimParams(duration=0.6, cam_hz=5.0,
+                                      nb_landmarks=400), seed=0)
+    orb = visual_frontend.FrontendParams(method="orb")
+    banks = [visual_frontend.detect_and_describe(
+        torch.as_tensor(frames[2], device=d), orb)
+        for d in (cuda_device, "cpu")]
+    rows = [{tuple(p): w for p, w, m in zip(
+        xy.cpu().numpy(), desc.cpu().numpy(), mask.cpu().numpy()) if m}
+        for xy, desc, mask in banks]
+    shared = sorted(set(rows[0]) & set(rows[1]))
+    assert len(shared) >= 0.99 * max(len(rows[0]), len(rows[1])) > 100
+    bits = [np.unpackbits(np.stack([r[k] for k in shared]).view(np.uint8),
+                          axis=1) for r in rows]
+    assert (bits[0] == bits[1]).mean() >= 0.99
+    assert banks[0][1].shape == (512, 8)
+    before = hamming.hamming_top2.launches
+    tracks = visual_frontend.track_sequence(frames[:4], params=orb,
+                                            device=cuda_device)
+    assert hamming.hamming_top2.launches - before == 4 and len(tracks) > 0
+
+
+@pytest.mark.cuda
+def test_png_round_trip_of_a_card_written_sequence(cuda_device, tmp_path):
+    """The simulator run on the card writes cam0 PNGs with the package's own
+    encoder; they decode to ``cam0_frames`` bit for bit, and the images
+    entry point runs from them on the card."""
+    from libwave_tpu_torch.pipelines import euroc_vio
+    from libwave_tpu_torch.sim import euroc_sim
+    from libwave_tpu_torch.vision import images
+
+    sim = euroc_sim.EurocSimParams(
+        duration=3.0, cam_hz=5.0, nb_landmarks=120, fx=229.0, fy=228.0,
+        cx=188.0, cy=120.0, width=376, height_px=240, render_images=True)
+    euroc_sim.generate_euroc_sequence(str(tmp_path), sim, seed=0,
+                                      device=cuda_device)
+    got = images.read_image_sequence(
+        str(tmp_path / "mav0" / "cam0" / "data"))
+    np.testing.assert_array_equal(got, euroc_sim.cam0_frames(sim, seed=0))
+    K = np.array([[sim.fx, 0, sim.cx], [0, sim.fy, sim.cy], [0, 0, 1.0]])
+    _, rep = euroc_vio.run_euroc_vio_from_images(
+        str(tmp_path), euroc_vio.EurocVIOParams(), K=K, device=cuda_device)
+    assert np.isfinite(rep["ate_rmse"]) and rep["num_tracks"] >= 30
+    assert rep["frontend_frames"] == len(got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", ["fast_brisk", "orb"])
+def test_batched_tracking_equals_single_on_the_card(cuda_device, method):
+    """``track_sequences_batched`` on the card: each sequence's tracks equal
+    ``track_sequence``'s with its own generator, bit for bit."""
+    frames = bench_frontend.make_euroc_frames(
+        bench_frontend.EurocSimParams(
+            duration=1.6, nb_landmarks=120, fx=229.0, fy=228.0, cx=188.0,
+            cy=120.0, width=376, height_px=240), seed=0)
+    params = visual_frontend.FrontendParams(method=method)
+    stack = np.stack([frames, frames[::-1], frames])
+    gens = [torch.Generator(device=cuda_device).manual_seed(s)
+            for s in (1, 2, 3)]
+    batched = visual_frontend.track_sequences_batched(
+        stack, params=params, generators=gens, device=cuda_device)
+    for b, s in enumerate((1, 2, 3)):
+        one = visual_frontend.track_sequence(
+            stack[b], params=params, device=cuda_device,
+            generator=torch.Generator(device=cuda_device).manual_seed(s))
+        np.testing.assert_array_equal(batched[b], one)

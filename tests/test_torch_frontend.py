@@ -23,6 +23,7 @@ from libwave_tpu.sim import EurocSimParams, generate_euroc_sequence
 from libwave_tpu.vision.images import read_image_sequence
 from libwave_tpu_torch import bench_frontend, interop
 from libwave_tpu_torch.pipelines import visual_frontend as tf
+from test_torch_windowed_vio import one_torch_thread  # noqa: F401
 
 SMALL = dict(nb_landmarks=120, fx=229.0, fy=228.0, cx=188.0, cy=120.0,
              width=376, height_px=240)
@@ -102,13 +103,24 @@ def test_params_defaults_field_by_field():
     assert tf._desc_words(tp) == jf._desc_words(jp) == 16
 
 
-def test_params_checks_and_orb_not_ported(frames):
+def test_params_checks():
     with pytest.raises(ValueError, match="unknown front-end method"):
         tf.FrontendParams(method="sift")
     with pytest.raises(ValueError, match="num_features"):
         tf.FrontendParams(tracker=tf.TrackerParams(num_features=100))
+    with pytest.raises(ValueError, match="num_features"):
+        tf.FrontendParams(method="orb", orb=tf.ORBDetectorParams(
+            num_features=100))
+
+
+@pytest.mark.parametrize("scan", [True, False])
+def test_orb_track_sequence_modes_agree(frames, scan):
+    """``method="orb"`` runs (it raised before the ORB port): both values
+    of ``scan`` give the same tracks, with 8-word banks in the tracker."""
     orb = tf.FrontendParams(method="orb")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tf.track_sequence(frames[:2], params=orb, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tf.detect_and_describe(torch.from_numpy(frames[0]), orb)
+    ref = tf.track_sequence(frames[:3], params=orb, scan=True, device="cpu")
+    got = tf.track_sequence(frames[:3], params=orb, scan=scan, device="cpu")
+    np.testing.assert_array_equal(got, ref)
+    assert len(ref) > 0 and set(np.unique(ref[:, 0])) <= {0.0, 1.0, 2.0}
+    xy, desc, m = tf.detect_and_describe(torch.from_numpy(frames[0]), orb)
+    assert desc.shape == (512, 8) and xy.shape == (512, 2) and m.any()

@@ -203,17 +203,28 @@ def test_nanmedian_midpoint_is_numpy_rule():
     assert np.isnan(got[2])
 
 
-def test_params_defaults_validation_and_lsh():
+def test_params_defaults_validation_and_lsh(banks):
+    """Defaults and checks; ``method="lsh"`` runs and, without outlier
+    removal, gives the JAX package's matches on the frame banks exactly
+    (``tests/test_torch_flann.py`` holds the index itself)."""
     assert dataclasses.asdict(jm.MatcherParams()) == dataclasses.asdict(
         tm.MatcherParams())
     for bad in (tm.MatcherParams(ratio_threshold=1.5),
                 tm.MatcherParams(fm_method="7point-nope"),
-                tm.MatcherParams(distance_threshold=-1.0)):
+                tm.MatcherParams(distance_threshold=-1.0),
+                tm.MatcherParams(method="kdtree")):
         with pytest.raises(ConfigError):
             validate(bad)
-    d = torch.zeros((4, 16), dtype=torch.int32)
-    xy = torch.zeros((4, 2))
-    m = torch.ones(4, dtype=torch.bool)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tm.match_descriptors(d, d, xy, xy, m, m, None,
-                             tm.MatcherParams(method="lsh"))
+    (xy1, d1, m1), (xy2, d2, m2) = banks
+    jp = jm.MatcherParams(method="lsh", auto_remove_outliers=False)
+    ij, vj, dj = jm.match_descriptors(d1, d2, xy1, xy2, m1, m2,
+                                      jax.random.key(0), jp)
+    it, vt, dt = tm.match_descriptors(
+        *_torch_bank(xy1, d1, m1)[1:2], *_torch_bank(xy2, d2, m2)[1:2],
+        torch.from_numpy(xy1), torch.from_numpy(xy2), torch.from_numpy(m1),
+        torch.from_numpy(m2), None, interop.params_from_jax(jp))
+    np.testing.assert_array_equal(vt.numpy(), np.asarray(vj))
+    np.testing.assert_array_equal(it.numpy(), np.asarray(ij))
+    np.testing.assert_array_equal(dt["num_candidates"].numpy(),
+                                  np.asarray(dj["num_candidates"]))
+    assert int(dt["num_good_matches"]) == int(dj["num_good_matches"]) > 0

@@ -1,5 +1,6 @@
-"""The port and chip_smoke.py run without JAX, and chip_smoke.py refuses to
-run without a CUDA device: it exits non-zero and never prints its result.
+"""The port and chip_smoke.py run without JAX (and write and read PNGs
+without PIL), and chip_smoke.py refuses to run without a CUDA device: it
+exits non-zero and never prints its result.
 
 Each case runs in a fresh interpreter: one where ``jax`` (and the JAX
 package ``libwave_tpu``) cannot be imported, so any import of them from the
@@ -20,6 +21,7 @@ for name in [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib")]:
 sys.modules["jax"] = None
 sys.modules["jaxlib"] = None
 sys.modules["libwave_tpu"] = None
+sys.modules["PIL"] = None
 """
 
 IMPORT_ALL = BLOCK_JAX + """
@@ -31,7 +33,7 @@ for name in names:
     importlib.import_module(name)
 import chip_smoke
 assert not [m for m in sys.modules
-            if m.split(".")[0] in ("jax", "jaxlib", "libwave_tpu")
+            if m.split(".")[0] in ("jax", "jaxlib", "libwave_tpu", "PIL")
             and sys.modules[m] is not None], "a JAX module was loaded"
 for new in ("ops.hamming", "vision.matcher", "vision.tracker",
             "containers.landmark", "pipelines.visual_frontend",
@@ -46,8 +48,22 @@ for new in ("ops.hamming", "vision.matcher", "vision.tracker",
             "matching.pointcloud", "matching.knn", "matching.loop",
             "matching.icp", "matching.gicp", "matching.ndt", "matching.multi",
             "matching.ground_segmentation", "pipelines.lidar_odometry",
-            "datasets.kitti", "bench_lidar"):
+            "datasets.kitti", "bench_lidar", "vision.images", "vision.flann",
+            "vision.epipolar", "vision.detector", "vision.descriptor",
+            "pipelines.vo_frontend"):
     assert "libwave_tpu_torch." + new in names, new
+# cam0 PNGs are written and read back with PIL blocked
+import os, tempfile
+import numpy as np
+from libwave_tpu_torch.sim import euroc_sim
+from libwave_tpu_torch.vision import images
+root = tempfile.mkdtemp()
+sim = euroc_sim.EurocSimParams(duration=0.4, cam_hz=5.0, nb_landmarks=30,
+                               width=64, height_px=48, fx=40.0, fy=40.0,
+                               cx=32.0, cy=24.0, render_images=True)
+euroc_sim.generate_euroc_sequence(root, sim, seed=1, device="cpu")
+got = images.read_image_sequence(os.path.join(root, "mav0", "cam0", "data"))
+assert (got == euroc_sim.cam0_frames(sim, seed=1)).all(), "PNG round trip"
 print("imported", len(names), "modules")
 """
 
@@ -65,8 +81,8 @@ def test_port_and_chip_smoke_import_without_jax():
     assert proc.returncode == 0, proc.stderr
     count = int(proc.stdout.split()[1])
     # the back end's, the front end's, VIO's, EuRoC VIO's, the windowed
-    # solvers' and the lidar path's modules
-    assert count >= 61
+    # solvers', the lidar path's and the pixels path's modules
+    assert count >= 65
 
 
 def test_chip_smoke_fails_without_cuda():
