@@ -16,10 +16,17 @@ the caller asks for the CPU).
 2,400 observations per pose, a linear fit t(K) = a + b*K, and the split by
 op. :func:`make_vio_problem` and :func:`bench_vio` are ``bench.py``'s
 ``bench_vio`` configuration (BASELINE config 4) built from seeds.
+
+:func:`ba_batched_problems` and :func:`bench_ba_batched` are ``bench.py``'s
+``bench_ba_batched`` (B windows of 50 poses, 2,000 landmarks and 240
+observations per pose, seeds 10 + i) through ``optim.ba.solve_ba_batched``;
+:func:`bench_ba_large` is its ``bench_ba_large`` (:func:`ba_large_problem`,
+5 LM iterations, 2 timed solves), without the FLOP accounting.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import time
 
 import numpy as np
@@ -33,6 +40,7 @@ from libwave_tpu_torch.optim.ba import (
     BAState,
     _linearize_ba,
     solve_ba,
+    solve_ba_batched,
 )
 from libwave_tpu_torch.pipelines import vio
 from libwave_tpu_torch.sim.vo_dataset import VoSimParams, generate_vo_dataset
@@ -302,25 +310,88 @@ def bench_backend(problem, state, iters=10, repeats=3, cfg=None):
     fetched to the host. ``cfg`` defaults to :func:`bench_config` of
     ``iters``. Returns (LM iterations/s, final cost)."""
     cfg = bench_config(iters) if cfg is None else cfg
-    iters = cfg.max_iterations
+    dt, cost = _seconds(
+        lambda: solve_ba(problem, state, cfg)[1]["final_cost"], repeats)
+    return cfg.max_iterations / dt, float(cost)
 
-    def run_once():
-        if state.p.is_cuda:
-            torch.cuda.synchronize(state.p.device)
+
+BATCH_WINDOWS = (8, 32)  # bench.py's B and B2
+BATCH_WINDOW_SHAPE = dict(num_poses=50, num_landmarks=2000, obs_per_pose=240)
+
+
+def ba_batched_problems(B: int = 32, device=None):
+    """``bench.py``'s batched windows: :func:`make_problem` at 50 poses,
+    2,000 landmarks and 240 observations per pose (12,000 slots), seed
+    10 + i for window i < B, each with its band plan. Returns (problems,
+    states), two lists."""
+    out = [make_problem(**BATCH_WINDOW_SHAPE, seed=10 + i, device=device)
+           for i in range(B)]
+    return [p for p, _ in out], [s for _, s in out]
+
+
+def batched_configs():
+    """``bench.py``'s ``cfg_pcg`` (8 LM iterations, 20 CG steps at 1e-5,
+    convergence freeze off) and ``cfg_dense`` (the same with the dense
+    solver at any landmark count)."""
+    cfg_pcg = BAConfig(max_iterations=8, cg_max_iters=20, cg_tol=1e-5,
+                       relative_decrease_tol=0.0, absolute_decrease_tol=0.0)
+    return cfg_pcg, dataclasses.replace(cfg_pcg, solver="dense",
+                                        dense_max_landmarks=100_000)
+
+
+def _seconds(fn, repeats: int = 3):
+    """Median seconds of ``repeats`` calls of ``fn`` after one warm-up
+    (kernel build and library load, allocator), each started after and
+    ended by a synchronize and a host read of ``fn``'s tensor. Returns
+    (seconds, the last call's tensor on the host)."""
+    def once():
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
         t0 = time.perf_counter()
-        _, info = solve_ba(problem, state, cfg)
-        if state.p.is_cuda:
-            torch.cuda.synchronize(state.p.device)
-        cost = float(info["final_cost"])
-        return time.perf_counter() - t0, cost
+        out = fn()
+        if out.is_cuda:
+            torch.cuda.synchronize(out.device)
+        out = out.cpu()
+        return time.perf_counter() - t0, out
 
-    run_once()  # warm-up: kernel build and library load, allocator
-    times = []
-    cost = 0.0
-    for _ in range(repeats):
-        dt, cost = run_once()
-        times.append(dt)
-    return iters / _median(times), cost
+    once()
+    runs = [once() for _ in range(repeats)]
+    return _median([t for t, _ in runs]), runs[-1][1]
+
+
+def bench_ba_batched(problems, states, repeats: int = 3) -> dict:
+    """``bench.py``'s ``bench_ba_batched`` keys on ``problems`` (at least
+    32 windows, :func:`ba_batched_problems`): aggregate LM iterations/s of
+    one window alone (PCG and dense), of B = 8 and 32 windows dense in one
+    batch (and their speedups over B single PCG solves, as ``bench.py``
+    computes them) and of 32 windows with PCG."""
+    cfg_pcg, cfg_dense = batched_configs()
+    iters = cfg_pcg.max_iterations
+    out = {}
+    dt1, _ = _seconds(lambda: solve_ba(problems[0], states[0], cfg_pcg)[1][
+        "final_cost"], repeats)
+    out["ba_window_iter_per_s_single"] = iters / dt1
+    dt1d, _ = _seconds(lambda: solve_ba(problems[0], states[0], cfg_dense)[
+        1]["final_cost"], repeats)
+    out["ba_window_iter_per_s_single_dense"] = iters / dt1d
+    for nb in BATCH_WINDOWS:
+        dtb, _ = _seconds(lambda: solve_ba_batched(
+            problems[:nb], states[:nb], cfg_dense)[1]["final_cost"], repeats)
+        out[f"ba_batched{nb}_iter_per_s"] = nb * iters / dtb
+        out[f"ba_batched{nb}_speedup"] = dt1 * nb / dtb
+    nb = BATCH_WINDOWS[-1]
+    dtp, _ = _seconds(lambda: solve_ba_batched(
+        problems[:nb], states[:nb], cfg_pcg)[1]["final_cost"], repeats)
+    out[f"ba_batched{nb}_pcg_iter_per_s"] = nb * iters / dtp
+    return out
+
+
+def bench_ba_large(problem, state) -> dict:
+    """``bench.py``'s ``bench_ba_large`` rate on :func:`ba_large_problem`:
+    5 LM iterations, the median of 2 timed solves, and the final cost."""
+    rate, cost = bench_backend(problem, state, iters=5, repeats=2)
+    return {"ba_lm_iterations_per_s_100k_landmarks": rate,
+            "ba_100k_final_cost": cost}
 
 
 def device_ms(fn, reps: int = 20, warmup: int = 2) -> float:

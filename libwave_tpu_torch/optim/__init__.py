@@ -6,8 +6,10 @@ from libwave_tpu_torch.optim.ba import (  # noqa: F401
     BAProblem,
     BAState,
     ba_cost,
+    ba_from_dataset,
     ba_reduced_hessian,
     solve_ba,
+    solve_ba_batched,
 )
 from libwave_tpu_torch.optim.marginalization import (  # noqa: F401
     psd_project,

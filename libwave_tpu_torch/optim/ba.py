@@ -11,6 +11,11 @@ The reference's ``lax.scan`` over LM iterations is a Python loop of fixed
 length here. Acceptance, convergence and lambda stay 0-d tensors updated
 with ``torch.where``: nothing inside the loop reads a device value on the
 host, and every iteration runs even after convergence, as in the reference.
+
+:func:`solve_ba_batched` is the port's ``jax.vmap(solve_ba)``: B problems
+of one shape solved as one disjoint union, each window with its own lambda,
+cost, acceptance and convergence ((B,) tensors). :func:`ba_from_dataset`
+builds a problem and its ground truth from a synthetic VO dataset.
 """
 
 from __future__ import annotations
@@ -18,6 +23,7 @@ from __future__ import annotations
 import dataclasses
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from libwave_tpu_torch.geometry import so3
@@ -28,7 +34,9 @@ from libwave_tpu_torch.optim.reprojection import (
     reprojection_residual_cm,
     reprojection_residual_ell,
 )
-from libwave_tpu_torch.utils.precision import f32_matmuls
+from libwave_tpu_torch.ops import segmm
+from libwave_tpu_torch.utils.device import resolve
+from libwave_tpu_torch.utils.precision import f32_matmuls, sums
 
 
 class BAProblem(NamedTuple):
@@ -48,7 +56,7 @@ class BAProblem(NamedTuple):
     :class:`schur.BandPlan` for the explicit-S build, or None.
     """
 
-    K: torch.Tensor  # (3, 3) intrinsics
+    K: torch.Tensor  # (3, 3) intrinsics; (3, 3, N, 1) per pose (batched)
     pose_idx: torch.Tensor  # (K_,) int32 — observation -> pose
     lm_idx: torch.Tensor  # (K_,) int32 — observation -> landmark
     uv: torch.Tensor  # (K_, 2) pixel measurements
@@ -226,11 +234,15 @@ def _prior_terms(problem: BAProblem, state: BAState):
 
 def ba_cost(problem: BAProblem, state: BAState,
             huber_delta: float | None = None,
-            axis_name: str | None = None) -> torch.Tensor:
+            axis_name: str | None = None,
+            windows: int | None = None) -> torch.Tensor:
     """Weighted (optionally Huber-robustified) reprojection cost +
     pose-graph factor cost + a fixed penalty per behind-camera
-    observation."""
+    observation. ``windows``: ``problem`` is that many equal windows of a
+    disjoint union (:func:`solve_ba_batched`); the cost is (windows,), each
+    window's sums reduced on their own."""
     schur.no_sharding(axis_name, "ba_cost")
+    total = sums(windows)
     if problem.ell is not None:
         N = problem.free_pose.shape[0]
         r, valid = reprojection_residual_ell(
@@ -247,14 +259,14 @@ def ba_cost(problem: BAProblem, state: BAState,
         )
     sq = r[0] * r[0] + r[1] * r[1]
     if huber_delta is None:
-        c = 0.5 * torch.sum(problem.weight * sq)
+        c = 0.5 * total(problem.weight * sq)
     else:
-        c = torch.sum(problem.weight * _huber_rho(sq, huber_delta))
-    c = c + _CHEIRALITY_PENALTY * torch.sum(
+        c = total(problem.weight * _huber_rho(sq, huber_delta))
+    c = c + _CHEIRALITY_PENALTY * total(
         problem.weight * (~valid).to(r.dtype)
     )
     c = c + pose_graph.pose_graph_cost(
-        state.q, state.p, problem.between, problem.priors
+        state.q, state.p, problem.between, problem.priors, windows
     )
     if problem.prior_Lambda is not None:
         c = c + _prior_cost(problem, state)
@@ -263,10 +275,13 @@ def ba_cost(problem: BAProblem, state: BAState,
 
 def _linearize_ba(problem: BAProblem, state: BAState, lam,
                   huber_delta: float | None = None,
-                  axis_name: str | None = None) -> schur.SchurBlocks:
+                  axis_name: str | None = None,
+                  lm_lam=None) -> schur.SchurBlocks:
     """Linearize every factor (reprojection + pose-graph + marginal head
     prior) at ``state`` and assemble damped normal-equation blocks. Shared
-    by the LM iteration and by :func:`ba_reduced_hessian` (``lam=0``)."""
+    by the LM iteration and by :func:`ba_reduced_hessian` (``lam=0``).
+    ``lm_lam``: the landmarks' damping when it differs from the poses'
+    (per pose and per landmark in the batched solve)."""
     schur.no_sharding(axis_name, "_linearize_ba")
     N = problem.free_pose.shape[0]
     M = state.lm.shape[0]
@@ -337,7 +352,7 @@ def _linearize_ba(problem: BAProblem, state: BAState, lam,
         r, J_pose, J_lm, w, problem.pose_idx, problem.lm_idx,
         N, M, lam, problem.free_pose,
         extra_Hpp=extra_Hpp, extra_bp=extra_bp, couplings=couplings,
-        ell=problem.ell,
+        ell=problem.ell, lm_damping=lm_lam,
     )
 
 
@@ -354,34 +369,59 @@ def ba_reduced_hessian(problem: BAProblem, state: BAState,
     return S.reshape(N * 6, N * 6), b.reshape(-1)
 
 
-def _lm_iteration(problem: BAProblem, cfg: BAConfig, carry,
-                  axis_name: str | None = None):
-    """One LM step. ``carry`` = (state, lam, cost, converged), all tensors;
-    returns the new carry and (cost, accepted, cg_iterations)."""
-    state, lam, cost, converged = carry
-    N = problem.free_pose.shape[0]
-    M = state.lm.shape[0]
-    blocks = _linearize_ba(problem, state, lam, cfg.huber_delta, axis_name)
-    rhs = schur.schur_rhs(blocks)
+def _reduced_step(problem: BAProblem, cfg: BAConfig, blocks, rhs,
+                  axis_name=None):
+    """Solve the reduced camera system: dense Schur, or PCG (matrix-free or
+    against an explicit S). Returns (dx_pose, CG iterations)."""
+    N = blocks.Hpp.shape[0]
+    M = blocks.bl.shape[-1]
     itemsize = rhs.element_size()
     if _use_dense_schur(cfg, N, 6, 6, M, itemsize, axis_name):
-        dx_pose = schur.dense_schur_solve(blocks, rhs)
-        cg_iterations = torch.zeros((), dtype=torch.int32, device=rhs.device)
-    else:
-        S4 = None
-        if _use_explicit_s(
-            cfg, N, 6, M, itemsize, problem.ell, axis_name, problem.bands,
-            device=rhs.device,
-        ):
-            S4 = schur.dense_reduced_system(
-                blocks, max_g_bytes=cfg.dense_max_g_bytes,
-                bands=problem.bands,
-            )
-        cg = schur.pcg(
-            blocks, rhs, max_iters=cfg.cg_max_iters, tol=cfg.cg_tol, S4=S4
+        return schur.dense_schur_solve(blocks, rhs), torch.zeros(
+            (), dtype=torch.int32, device=rhs.device)
+    S4 = None
+    if _use_explicit_s(
+        cfg, N, 6, M, itemsize, problem.ell, axis_name, problem.bands,
+        device=rhs.device,
+    ):
+        S4 = schur.dense_reduced_system(
+            blocks, max_g_bytes=cfg.dense_max_g_bytes, bands=problem.bands,
         )
-        dx_pose = cg.x
-        cg_iterations = cg.iterations
+    cg = schur.pcg(
+        blocks, rhs, max_iters=cfg.cg_max_iters, tol=cfg.cg_tol, S4=S4
+    )
+    return cg.x, cg.iterations
+
+
+class _Single:
+    """One problem, seen through :class:`_Windows`' interface: its lambda,
+    cost and flags are scalars that broadcast as they are."""
+
+    count = None
+
+    @staticmethod
+    def per_pose(x):
+        return x
+
+    per_landmark = per_pose
+
+    @staticmethod
+    def reduced_step(cfg: BAConfig, problem: BAProblem, blocks, rhs):
+        return _reduced_step(problem, cfg, blocks, rhs)
+
+
+def _lm_iteration(problem: BAProblem, cfg: BAConfig, carry,
+                  axis_name: str | None = None, windows=_Single):
+    """One LM step. ``carry`` = (state, lam, cost, converged), all tensors;
+    returns the new carry and (cost, accepted, cg_iterations). With
+    ``windows`` (a :class:`_Windows`), ``problem`` is their disjoint union
+    and lam, cost, converged and the outputs are (B,)."""
+    state, lam, cost, converged = carry
+    blocks = _linearize_ba(problem, state, windows.per_pose(lam),
+                           cfg.huber_delta, axis_name,
+                           lm_lam=windows.per_landmark(lam))
+    rhs = schur.schur_rhs(blocks)
+    dx_pose, cg_iterations = windows.reduced_step(cfg, problem, blocks, rhs)
     dx_lm = schur.back_substitute(blocks, dx_pose)
 
     free = problem.free_pose[:, None]
@@ -390,10 +430,10 @@ def _lm_iteration(problem: BAProblem, cfg: BAConfig, carry,
         p=state.p + dx_pose[:, 3:6] * free,
         lm=state.lm + dx_lm,
     )
-    new_cost = ba_cost(problem, new_state, cfg.huber_delta, axis_name)
-    step_ok = torch.isfinite(torch.sum(dx_pose)) & torch.isfinite(
-        torch.sum(dx_lm)
-    )
+    new_cost = ba_cost(problem, new_state, cfg.huber_delta, axis_name,
+                       windows.count)
+    total = sums(windows.count)
+    step_ok = torch.isfinite(total(dx_pose)) & torch.isfinite(total(dx_lm))
     accept = (new_cost < cost) & ~converged & torch.isfinite(new_cost) & step_ok
     decrease = cost - new_cost
     converged = converged | (
@@ -401,9 +441,10 @@ def _lm_iteration(problem: BAProblem, cfg: BAConfig, carry,
         & (decrease < cfg.relative_decrease_tol * cost
            + cfg.absolute_decrease_tol)
     )
-    state = BAState(
-        *(torch.where(accept, new, old) for new, old in zip(new_state, state))
-    )
+    keep = (windows.per_pose(accept),) * 2 + (
+        windows.per_landmark(accept)[..., None],)
+    state = BAState(*(torch.where(k, new, old)
+                      for k, new, old in zip(keep, new_state, state)))
     cost = torch.where(accept, new_cost, cost)
     lam = torch.where(
         converged,
@@ -449,3 +490,247 @@ def solve_ba(problem: BAProblem, state: BAState, cfg: BAConfig = BAConfig(),
         "final_lambda": lam,
     }
     return state, info
+
+
+class _Windows(NamedTuple):
+    """B windows of one shape packed as a disjoint union: window b holds
+    poses ``[b*N, (b+1)*N)``, landmarks ``[b*M, (b+1)*M)`` and between
+    factors ``[b*F, (b+1)*F)``; ``layouts`` are the windows' landmark
+    layouts of their own slots, ``bands`` their own band plans."""
+
+    count: int
+    poses: int
+    landmarks: int
+    factors: int
+    layouts: tuple
+    bands: tuple
+
+    def each(self):
+        N, M, F = self.poses, self.landmarks, self.factors
+        return [schur.Window(b * N, (b + 1) * N, b * M, (b + 1) * M, b * F,
+                             (b + 1) * F) for b in range(self.count)]
+
+    def per_pose(self, x):
+        """(B,) -> (B*N, 1): each window's value on each of its poses."""
+        return x[:, None].expand(self.count, self.poses).reshape(-1, 1)
+
+    def per_landmark(self, x):
+        """(B,) -> (B*M,): each window's value on each of its landmarks."""
+        return x[:, None].expand(self.count, self.landmarks).reshape(-1)
+
+    def reduced_step(self, cfg: BAConfig, problem: BAProblem, blocks, rhs):
+        """Each window's reduced camera system, solved as
+        :func:`_reduced_step` solves a problem of its own, on the window's
+        view of the union's blocks: its G/A calls, products, Cholesky and
+        CG (dots, step sizes, stopping test) are those of its own solve.
+        Matrix-free CG so runs its matvecs window by window: an LM
+        iteration launches 3 + B*cg reduces and 1 + B*(1 + cg) broadcasts
+        at cg CG steps, against 3 and 1 on the dense and explicit-S routes.
+        Returns (dx_pose, (B,) CG iterations)."""
+        xs, its = [], []
+        for w, layout, bands in zip(self.each(), self.layouts, self.bands):
+            x, it = _reduced_step(
+                problem._replace(ell=layout, bands=bands), cfg,
+                schur.window_blocks(blocks, w, layout), rhs[w.plo:w.phi])
+            xs.append(x)
+            its.append(it)
+        return torch.cat(xs), torch.stack(its)
+
+
+def _union(problems, states):
+    """The disjoint union of B pose-ELL problems of one shape (N poses, M
+    landmarks, banks of equal sizes), built on their device without a host
+    read. Slot banks are padded to the widest window with zero-weight
+    slots; the landmark layout lists each window's slots in that window's
+    order, so every landmark's reduce adds what its own solve adds, in the
+    same order."""
+    B = len(problems)
+    if B == 0 or len(states) != B:
+        raise ValueError(f"solve_ba_batched: {B} problems and {len(states)} "
+                         "states; need one state per problem, at least one")
+    p0 = problems[0]
+    N, M = p0.num_poses, states[0].lm.shape[0]
+    for pr, st in zip(problems, states):
+        if pr.ell is None or pr.prior_Lambda is not None:
+            raise ValueError("solve_ba_batched takes pose-ELL problems "
+                             "(schur.pack_observations) without a dense "
+                             "marginal prior")
+        if pr.num_poses != N or st.lm.shape[0] != M:
+            raise ValueError(f"solve_ba_batched: windows of {pr.num_poses} "
+                             f"poses and {st.lm.shape[0]} landmarks; the "
+                             f"first has {N} and {M}")
+        for bank in ("between", "priors"):
+            a, b = getattr(pr, bank), getattr(p0, bank)
+            if (a is None) != (b is None) or (
+                    a is not None and a.i.shape != b.i.shape):
+                raise ValueError(f"solve_ba_batched: the windows' {bank} "
+                                 "banks differ in size")
+    P = max(pr.lm_idx.shape[0] // N for pr in problems)
+
+    def slots(x, fill=0):
+        """(N*Pb, ...) pose-ELL slots -> (N, P, ...), padded with fill."""
+        x = x.reshape((N, -1) + x.shape[1:])
+        if x.shape[1] == P:
+            return x
+        pad = x.new_full((N, P - x.shape[1]) + x.shape[2:], fill)
+        return torch.cat([x, pad], dim=1)
+
+    def cat(fn):
+        return torch.cat([fn(b, pr) for b, pr in enumerate(problems)])
+
+    lm_idx = cat(lambda b, pr: slots(pr.lm_idx) + b * M).reshape(-1)
+    listed = cat(lambda b, pr: slots(
+        segmm.layout_ids(pr.ell, pr.lm_idx.shape[0]) >= 0, False)).reshape(-1)
+    dev = lm_idx.device
+    K = torch.stack([pr.K for pr in problems]).permute(1, 2, 0)
+    between = priors = None
+    if p0.between is not None:
+        between = pose_graph.BetweenBank(
+            i=cat(lambda b, pr: pr.between.i + b * N),
+            j=cat(lambda b, pr: pr.between.j + b * N),
+            dq=cat(lambda b, pr: pr.between.dq),
+            dp=cat(lambda b, pr: pr.between.dp),
+            sqrt_info=cat(lambda b, pr: pr.between.sqrt_info))
+    if p0.priors is not None:
+        priors = pose_graph.PriorBank(
+            i=cat(lambda b, pr: pr.priors.i + b * N),
+            q=cat(lambda b, pr: pr.priors.q), p=cat(lambda b, pr: pr.priors.p),
+            sqrt_info=cat(lambda b, pr: pr.priors.sqrt_info))
+    problem = BAProblem(
+        K=K[:, :, :, None].expand(3, 3, B, N).reshape(3, 3, B * N, 1),
+        pose_idx=torch.arange(B * N, dtype=torch.int32, device=dev)[
+            :, None].expand(B * N, P).reshape(-1),
+        lm_idx=lm_idx,
+        uv=cat(lambda b, pr: slots(pr.uv)).reshape(-1, 2),
+        weight=cat(lambda b, pr: slots(pr.weight)).reshape(-1),
+        free_pose=cat(lambda b, pr: pr.free_pose),
+        between=between, priors=priors,
+        ell=segmm.sorted_layout(torch.where(listed, lm_idx, B * M), B * M),
+    )
+    # each window's layout of its own (padded) slots: the same stable sort
+    # as the union's, so a window's runs are its runs in the union
+    local = (lm_idx.reshape(B, -1) - M * torch.arange(
+        B, dtype=lm_idx.dtype, device=dev)[:, None])
+    layouts = tuple(segmm.sorted_layout(torch.where(v, i, M), M)
+                    for i, v in zip(local, listed.reshape(B, -1)))
+    state = BAState(*(torch.cat(x) for x in zip(*states)))
+    F = 0 if between is None else p0.between.i.shape[0]
+    return problem, state, _Windows(B, N, M, F, layouts,
+                                    tuple(pr.bands for pr in problems))
+
+
+@f32_matmuls
+def solve_ba_batched(problems, states, cfg: BAConfig = BAConfig()):
+    """Solve B bundle-adjustment windows of one shape as one batch: the
+    port's form of ``jax.vmap(solve_ba)``. ``problems`` and ``states`` are
+    sequences of B pose-ELL :class:`BAProblem` / :class:`BAState` on one
+    device, with N poses and M landmarks each and banks of equal sizes (a
+    window's slot bank may be narrower: it is padded with zero-weight
+    slots). Returns the states stacked, q (B, N, 4), p (B, N, 3), lm (B, M,
+    3), and the info of :func:`solve_ba` with a leading (B,) (costs,
+    accepted and cg_iterations (B, iterations)).
+
+    Every window keeps its own lambda, cost, acceptance and frozen
+    convergence: one window's rejection touches no other. The windows are
+    packed as one disjoint union, so linearization, normal equations, the
+    segment reduce and broadcast, back-substitution and the cost run once
+    for all B; the reduced camera system is solved window by window (dense
+    Schur: one G/A call per window and iteration, its own Cholesky). On the
+    dense and explicit-S routes an LM iteration so launches 3 reduces and 1
+    broadcast whatever B; matrix-free CG adds each window's own (see
+    :meth:`_Windows.reduced_step`). Each window's sums are reduced on their
+    own, so on a window of the widest slot bank the batch computes what the
+    window's own :func:`solve_ba` computes."""
+    cfg.validate()
+    problem, state, windows = _union(problems, states)
+    B = windows.count
+    dev = state.p.device
+    lam = torch.full((B,), cfg.init_lambda, dtype=state.p.dtype, device=dev)
+    cost0 = ba_cost(problem, state, cfg.huber_delta, windows=B)
+    carry = (state, lam, cost0, torch.zeros((B,), dtype=torch.bool,
+                                            device=dev))
+    costs, accepts, cg_iters = [], [], []
+    for _ in range(cfg.max_iterations):
+        carry, (c, a, it) = _lm_iteration(problem, cfg, carry,
+                                          windows=windows)
+        costs.append(c)
+        accepts.append(a)
+        cg_iters.append(it)
+    state, lam, cost, _ = carry
+    N, M = windows.poses, windows.landmarks
+    out = BAState(q=state.q.reshape(B, N, 4), p=state.p.reshape(B, N, 3),
+                  lm=state.lm.reshape(B, M, 3))
+    info = {
+        "initial_cost": cost0,
+        "final_cost": cost,
+        "costs": torch.stack(costs, dim=1),
+        "accepted": torch.stack(accepts, dim=1),
+        "cg_iterations": torch.stack(cg_iters, dim=1),
+        "final_lambda": lam,
+    }
+    return out, info
+
+
+def ba_from_dataset(dataset, noise_pixels: float = 0.0,
+                    generator: torch.Generator | None = None,
+                    max_obs: int | None = None, with_odometry: bool = False,
+                    with_priors: bool = False, device=None):
+    """A :class:`BAProblem` and its ground-truth :class:`BAState` from a
+    synthetic VO dataset (port of ``libwave_tpu.optim.ba.ba_from_dataset``;
+    the reference's ba_test.cpp:62-193), on ``device`` (default: the
+    card). Returns ``(problem, gt_state)``; callers perturb the state.
+
+    Only frames where the camera triggered become poses, q_GC = q_GB ⊗
+    q_BC. Observations run frame-major, landmark id ascending within a
+    frame (that order fixes the ELL layout and where ``max_obs`` cuts).
+    With ``noise_pixels`` and ``generator``, pixels get that much standard
+    normal noise, drawn on the generator's device in the pixels' dtype (the
+    JAX package draws from a key). The first two poses are the gauge;
+    ``with_priors`` frees them and puts priors of sqrt-information 1e5
+    (rotation) and 1e6 (translation) on them; ``with_odometry`` adds
+    ground-truth between factors of sigmas 1e-3 and 1e-4."""
+    from libwave_tpu_torch.sim.vo_dataset import q_BC
+
+    device = resolve(device)
+    vis = dataset.visible.to(device)
+    frames = torch.nonzero(dataset.frame_has_obs.to(device))[:, 0]
+    M = dataset.landmarks.shape[0]
+    q_GB = dataset.robot_q_GB.to(device)[frames]
+    p_GB = dataset.robot_p_GB.to(device)[frames]
+    q_GC = so3.quat_multiply(q_GB, q_BC(q_GB.dtype, device))
+
+    # row-major nonzero: frame-major, ids ascending within a frame
+    pose_idx, lm_idx = torch.nonzero(vis[frames], as_tuple=True)
+    uv = dataset.pixels.to(device)[frames[pose_idx], lm_idx]
+    if generator is not None and noise_pixels > 0:
+        uv = uv + noise_pixels * torch.randn(
+            uv.shape, generator=generator, dtype=uv.dtype,
+            device=generator.device).to(device)
+    if max_obs is not None:
+        pose_idx, lm_idx, uv = pose_idx[:max_obs], lm_idx[:max_obs], uv[:max_obs]
+
+    N = frames.shape[0]
+    free = np.ones(N)
+    free[:2] = 0.0
+    gt = BAState(q=q_GC, p=p_GB, lm=dataset.landmarks.to(device))
+    between = priors = None
+    if with_odometry:
+        between = pose_graph.between_from_trajectory(
+            gt.q, gt.p, sigmas_rot=1e-3, sigmas_trans=1e-4)
+    if with_priors:
+        free[:] = 1.0
+        si = torch.tensor([1e5] * 3 + [1e6] * 3, dtype=uv.dtype,
+                          device=device)
+        priors = pose_graph.PriorBank(
+            i=torch.tensor([0, 1], dtype=torch.int32, device=device),
+            q=gt.q[:2], p=gt.p[:2], sqrt_info=si.expand(2, 6).contiguous())
+    pose_ell, lm_ell, pad_mask, ell, uv_p = schur.pack_observations(
+        pose_idx, lm_idx, N, M, uv, device=device)
+    problem = BAProblem(
+        K=dataset.camera_K.to(device),
+        pose_idx=pose_ell, lm_idx=lm_ell, uv=uv_p,
+        weight=pad_mask.to(uv.dtype),
+        free_pose=torch.as_tensor(free, dtype=uv.dtype, device=device),
+        between=between, priors=priors, ell=ell,
+    )
+    return problem, gt

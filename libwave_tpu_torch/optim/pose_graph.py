@@ -27,7 +27,7 @@ import torch
 from torch.func import vmap
 
 from libwave_tpu_torch.geometry import so3
-from libwave_tpu_torch.utils.precision import f32_matmuls
+from libwave_tpu_torch.utils.precision import f32_matmuls, sums
 
 
 class BetweenBank(NamedTuple):
@@ -146,19 +146,24 @@ def linearize_prior(bank: PriorBank, q, p):
 
 
 def pose_graph_cost(q, p, between: BetweenBank | None,
-                    priors: PriorBank | None):
-    c = torch.zeros((), dtype=p.dtype, device=p.device)
+                    priors: PriorBank | None, windows: int | None = None):
+    """0.5 |r|^2 of both banks. ``windows``: the banks hold that many
+    windows of a disjoint union, each with an equal share of the factors,
+    window-major; the cost is then (windows,), one sum per window."""
+    total = sums(windows)
+    c = torch.zeros(() if windows is None else (windows,), dtype=p.dtype,
+                    device=p.device)
     if between is not None:
         r = _between_residual(
             q[between.i], p[between.i], q[between.j], p[between.j],
             between.dq, between.dp, between.sqrt_info,
         )
-        c = c + 0.5 * torch.sum(r * r)
+        c = c + 0.5 * total(r * r)
     if priors is not None:
         r = _prior_residual(
             q[priors.i], p[priors.i], priors.q, priors.p, priors.sqrt_info
         )
-        c = c + 0.5 * torch.sum(r * r)
+        c = c + 0.5 * total(r * r)
     return c
 
 

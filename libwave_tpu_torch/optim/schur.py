@@ -350,6 +350,46 @@ class SchurBlocks(NamedTuple):
     axis_name: object = None  # always None: sharding is not ported
 
 
+class Window(NamedTuple):
+    """One window of a disjoint union of equal pose-ELL problems (the
+    batched BA solve): its poses ``[plo, phi)``, landmarks ``[c0, c1)`` and
+    pose-pose coupling rows ``[f0, f1)`` in the union's blocks."""
+
+    plo: int
+    phi: int
+    c0: int
+    c1: int
+    f0: int
+    f1: int
+
+
+def window_blocks(blocks: SchurBlocks, w: Window,
+                  layout: EllLayout) -> SchurBlocks:
+    """The blocks of window ``w`` of a disjoint union, in the window's own
+    pose, landmark and slot numbering (views where they can be, copies of
+    the few operands a kernel reads whole); ``layout`` is the window's
+    landmark-sorted layout of its own slots. Everything downstream (the
+    dense Schur solve, PCG, the G/A build) then runs on the window as on a
+    problem of its own."""
+    plo, phi, c0, c1, f0, f1 = w
+    P = blocks.W.shape[2]
+    return blocks._replace(
+        Hpp=blocks.Hpp[plo:phi],
+        Hll_inv=blocks.Hll_inv[:, c0:c1].contiguous(),
+        W=blocks.W[:, plo:phi],
+        bp=blocks.bp[plo:phi],
+        bl=blocks.bl[:, c0:c1],
+        pose_idx=blocks.pose_idx[:(phi - plo) * P],
+        lm_idx=blocks.lm_idx[plo * P:phi * P] - c0,
+        lm_order=layout,
+        free_pose=blocks.free_pose[plo:phi],
+        ell=layout,
+        C=blocks.C[f0:f1],
+        ci=blocks.ci[f0:f1] - plo,
+        cj=blocks.cj[f0:f1] - plo,
+    )
+
+
 def _seg_lm(blocks: SchurBlocks, vals):
     """Reduce (C, K)/(C, N, Pmax) by landmark into (C, M)."""
     return ell_seg_reduce(vals.reshape(vals.shape[0], -1), blocks.lm_order)
@@ -367,7 +407,7 @@ def build_normal_equations(
     damping, free_pose,
     extra_Hpp=None, extra_bp=None, couplings=None,
     ell: EllLayout | None = None, pose_dim: int | None = None,
-    axis_name: str | None = None, sum_dtype=None,
+    axis_name: str | None = None, sum_dtype=None, lm_damping=None,
 ) -> SchurBlocks:
     """Assemble damped normal-equation blocks from a linearized observation
     bank.
@@ -381,7 +421,11 @@ def build_normal_equations(
 
     ``weights`` fold in validity masks, padding masks and robust-loss
     weights. ``damping`` is the LM lambda; diagonals are damped
-    multiplicatively (Marquardt scaling) with an additive floor.
+    multiplicatively (Marquardt scaling) with an additive floor. It may
+    also be a tensor that broadcasts against the (N, D) pose diagonals, and
+    ``lm_damping`` one against the (M,) landmark components (a disjoint
+    union of windows, each with its own lambda); ``lm_damping`` defaults
+    to ``damping``.
 
     ``pose_dim``: full tangent dimension D of the pose blocks when the
     observation Jacobian only touches the first ``J_pose.shape[1]`` of them
@@ -477,8 +521,9 @@ def build_normal_equations(
     # components are 0, 3, 5). Built by rows, not with an index list, which
     # would copy the list to the device and synchronize.
     zero = torch.zeros_like(Hll[0])
+    lm_damping = damping if lm_damping is None else lm_damping
     Hll_add = torch.stack(
-        [damping * Hll[i] + floor if i in (0, 3, 5) else zero
+        [lm_damping * Hll[i] + floor if i in (0, 3, 5) else zero
          for i in range(6)]
     )
     Hll_inv = sym3_inv(Hll + Hll_add)

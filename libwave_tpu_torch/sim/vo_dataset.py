@@ -13,14 +13,20 @@ come from a seeded numpy generator, or from the caller (``landmarks=``), so
 that both packages can be fed the same landmarks. Everything after the
 landmarks is deterministic. The robot's Euler recurrence and the camera's
 rate gate (sequential, 3 numbers per step) run on the host in ``dtype``;
-the (T, M) projection runs on ``device``. Directory save and load are not
-ported.
+the (T, M) projection runs on ``device``.
+
+:func:`save_vo_dataset` and :func:`load_vo_dataset` write and read the
+reference's text directory format (``landmarks.dat``, ``calib.dat``,
+``state.dat``, ``index.dat`` and one ``observed_<n>.dat`` per triggered
+frame; quaternions stored xyzw, wxyz in memory), the same files the JAX
+package writes and reads. Files are parsed on the host with numpy.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+import os
 from typing import NamedTuple
 
 import numpy as np
@@ -149,4 +155,119 @@ def generate_vo_dataset(params: VoSimParams, seed: int = 0, landmarks=None,
         pixels=uv,
         visible=vis,
         frame_has_obs=trig,
+    )
+
+
+# ---------------------------------------------------------------------------
+# Directory serialization (reference text format, VoDataset.cpp:57-211)
+# ---------------------------------------------------------------------------
+
+
+def _np(x):
+    return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else (
+        np.asarray(x))
+
+
+def save_vo_dataset(ds: VoDataset, out_dir: str) -> None:
+    """Write ``ds`` in the reference's directory format (numbers as Python
+    prints them, quaternions xyzw), one ``observed_<n>.dat`` per triggered
+    frame listing its visible landmarks by ascending id."""
+    os.makedirs(out_dir, exist_ok=True)
+    lm = _np(ds.landmarks)
+    with open(os.path.join(out_dir, "landmarks.dat"), "w") as f:
+        for i, p in enumerate(lm):
+            f.write(f"{i} {p[0]} {p[1]} {p[2]}\n")
+    with open(os.path.join(out_dir, "calib.dat"), "w") as f:
+        f.write(" ".join(str(v) for v in _np(ds.camera_K).reshape(-1)) + "\n")
+
+    q, p, t = _np(ds.robot_q_GB), _np(ds.robot_p_GB), _np(ds.times)
+    vis, uv, trig = _np(ds.visible), _np(ds.pixels), _np(ds.frame_has_obs)
+    with open(os.path.join(out_dir, "state.dat"), "w") as f:
+        for i in range(len(t)):
+            f.write(f"{t[i]} {p[i, 0]} {p[i, 1]} {p[i, 2]} "
+                    f"{q[i, 1]} {q[i, 2]} {q[i, 3]} {q[i, 0]}\n")
+    with open(os.path.join(out_dir, "index.dat"), "w") as idx:
+        n = 0
+        for i in np.nonzero(trig)[0]:
+            name = f"observed_{n}.dat"
+            rows = "".join(f"{j} {uv[i, j, 0]} {uv[i, j, 1]}\n"
+                           for j in np.nonzero(vis[i])[0])
+            with open(os.path.join(out_dir, name), "w") as f:
+                f.write(f"{t[i]}\n{p[i, 0]} {p[i, 1]} {p[i, 2]}\n"
+                        f"{q[i, 1]} {q[i, 2]} {q[i, 3]} {q[i, 0]}\n"
+                        f"{int(vis[i].sum())}\n{rows}")
+            idx.write(name + "\n")
+            n += 1
+
+
+def _frame_tokens(in_dir: str, name: str):
+    with open(os.path.join(in_dir, os.path.basename(name))) as f:
+        return f.read().split()
+
+
+def load_vo_dataset(in_dir: str, num_landmarks: int | None = None,
+                    dtype=torch.float64, device=None) -> VoDataset:
+    """Read a dataset in the reference's directory format into dense
+    tensors on ``device`` (default: the card), floating fields in
+    ``dtype``; every listed frame counts as triggered.
+
+    Exported datasets are read as the JAX package reads them: without
+    ``landmarks.dat`` the table is sized from the largest observed id (its
+    positions zero); a frame that declares more observation rows than it
+    holds gives the rows it holds; ids ``>= M`` are dropped. ``M`` is
+    ``num_landmarks`` when given."""
+    K = np.loadtxt(os.path.join(in_dir, "calib.dat")).reshape(3, 3)
+    with open(os.path.join(in_dir, "index.dat")) as f:
+        names = [ln.strip() for ln in f if ln.strip()]
+    frames = [_frame_tokens(in_dir, n) for n in names]
+
+    def rows(toks):
+        """(ids, uv) of the observation rows a frame holds."""
+        n_obs = int(float(toks[8]))
+        n = min(n_obs, (len(toks) - 9) // 3)
+        a = np.asarray(toks[9:9 + 3 * n], dtype=np.float64).reshape(n, 3)
+        return a[:, 0].astype(np.int64), a[:, 1:]
+
+    lm_path = os.path.join(in_dir, "landmarks.dat")
+    if os.path.exists(lm_path):
+        lm_raw = np.loadtxt(lm_path, ndmin=2)
+        ids = lm_raw[:, 0].astype(int)
+        M = int(ids.max()) + 1 if num_landmarks is None else num_landmarks
+        landmarks = np.zeros((M, 3))
+        landmarks[ids] = lm_raw[:, 1:4]
+    else:
+        # exported drives carry no landmark ground truth; as in the JAX
+        # package, the id of a row cut short after its id still counts
+        max_id = -1
+        for toks in frames:
+            ids = toks[9:9 + 3 * int(float(toks[8])):3]
+            max_id = max([max_id] + [int(float(j)) for j in ids])
+        M = max_id + 1 if num_landmarks is None else num_landmarks
+        landmarks = np.zeros((M, 3))
+
+    T = len(frames)
+    head = np.asarray([toks[:8] for toks in frames],
+                      dtype=np.float64).reshape(T, 8)
+    pixels = np.zeros((T, M, 2))
+    visible = np.zeros((T, M), dtype=bool)
+    for i, toks in enumerate(frames):
+        ids, uv = rows(toks)
+        keep = ids < M
+        pixels[i, ids[keep]] = uv[keep]
+        visible[i, ids[keep]] = True
+
+    device = resolve(device)
+
+    def t(a, dt=dtype):
+        return torch.as_tensor(a, dtype=dt).to(device)
+
+    return VoDataset(
+        landmarks=t(landmarks),
+        camera_K=t(K),
+        times=t(head[:, 0]),
+        robot_p_GB=t(head[:, 1:4]),
+        robot_q_GB=t(head[:, [7, 4, 5, 6]]),  # xyzw in the file
+        pixels=t(pixels),
+        visible=t(visible, torch.bool),
+        frame_has_obs=torch.ones(T, dtype=torch.bool, device=device),
     )

@@ -107,3 +107,20 @@ def per_item(fn, *args):
     if isinstance(outs[0], torch.Tensor):
         return torch.stack(outs)
     return tuple(torch.stack(o) for o in zip(*outs))
+
+
+def item_sums(x: torch.Tensor, items: int) -> torch.Tensor:
+    """(items,) sums of ``x`` split into ``items`` equal contiguous parts
+    (a disjoint union of equal problems, item-major), one reduction per
+    part. A single reduction over (items, n) may split each part's work
+    unlike a sum of that part alone; this keeps each item's sum that of its
+    own unbatched ``torch.sum``."""
+    return torch.stack([torch.sum(v) for v in x.reshape(items, -1)])
+
+
+def sums(items: int | None):
+    """The sum of one problem's terms: ``torch.sum``, or with ``items`` the
+    (items,) per-item sums of :func:`item_sums`."""
+    if items is None:
+        return torch.sum
+    return functools.partial(item_sums, items=items)

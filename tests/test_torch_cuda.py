@@ -868,3 +868,140 @@ def test_batched_tracking_equals_single_on_the_card(cuda_device, method):
             stack[b], params=params, device=cuda_device,
             generator=torch.Generator(device=cuda_device).manual_seed(s))
         np.testing.assert_array_equal(batched[b], one)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("solver", ["dense", "pcg"])
+def test_batched_ba_equals_own_solves_on_the_card(cuda_device, solver):
+    """Three f32 windows (``bench.py``'s batched windows cut to 12 poses and
+    300 landmarks; one moved far off, so it rejects steps the others
+    accept) in one ``solve_ba_batched``: every window's accept flags equal
+    its own ``solve_ba``'s on the card, costs within rtol 1e-5; one G/A
+    call per window and iteration on the dense path."""
+    problems, states = [], []
+    for i in range(3):
+        pr, st = bench_problem.make_problem(num_poses=12, num_landmarks=300,
+                                            obs_per_pose=60, seed=10 + i,
+                                            device=cuda_device)
+        if i == 1:
+            gen = torch.Generator(device=cuda_device).manual_seed(0)
+            st = st._replace(lm=st.lm + 2.5 * torch.randn(
+                st.lm.shape, generator=gen, device=cuda_device))
+        problems.append(pr)
+        states.append(st)
+    cfg_pcg, cfg_dense = bench_problem.batched_configs()
+    cfg = cfg_dense if solver == "dense" else cfg_pcg
+    before = segmm.dense_g_a_window.launches
+    out, info = ba.solve_ba_batched(problems, states, cfg)
+    launched = segmm.dense_g_a_window.launches - before
+    if solver == "dense":
+        assert launched == 3 * cfg.max_iterations
+    for b, (pr, st) in enumerate(zip(problems, states)):
+        s1, i1 = ba.solve_ba(pr, st, cfg)
+        assert torch.equal(info["accepted"][b], i1["accepted"])
+        torch.testing.assert_close(info["costs"][b], i1["costs"], rtol=1e-5,
+                                   atol=0)
+        assert out.lm[b].shape == s1.lm.shape
+    assert bool((info["final_cost"] < info["initial_cost"]).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("flags", [dict(), dict(with_odometry=True,
+                                                with_priors=True)])
+def test_ba_from_dataset_card_equals_cpu(cuda_device, flags):
+    """The same dataset built into a problem on the card and on the CPU
+    (noise from one CPU generator seed): the observation bank, weights,
+    gauge and layout exactly, poses and banks within 1e-12."""
+    params = vo_dataset.VoSimParams(nb_landmarks=100, steps=300, fx=200.0,
+                                    fy=200.0, hz=10.0)
+    lm = vo_dataset.draw_landmarks(params, 7)
+    built = []
+    for dev in (cuda_device, torch.device("cpu")):
+        ds = vo_dataset.generate_vo_dataset(params, landmarks=lm, device=dev)
+        built.append(ba.ba_from_dataset(
+            ds, noise_pixels=1.1, generator=torch.Generator().manual_seed(0),
+            device=dev, **flags))
+    (pc, gc), (pp, gp) = built
+    for f in ("pose_idx", "lm_idx", "weight", "free_pose", "K"):
+        assert torch.equal(getattr(pc, f).cpu(), getattr(pp, f)), f
+    assert torch.equal(pc.ell.sigma.cpu(), pp.ell.sigma)
+    assert torch.equal(pc.ell.offsets.cpu(), pp.ell.offsets)
+    torch.testing.assert_close(pc.uv.cpu(), pp.uv, rtol=0, atol=1e-9)
+    for a, b in zip(gc, gp):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-12, atol=1e-12)
+    for bank in ("between", "priors"):
+        if getattr(pp, bank) is not None:
+            for a, b in zip(getattr(pc, bank), getattr(pp, bank)):
+                torch.testing.assert_close(a.cpu(), b, rtol=1e-12, atol=1e-12)
+
+
+def _png_chunk(t, body):
+    import struct
+    import zlib
+
+    return (struct.pack(">I", len(body)) + t + body
+            + struct.pack(">I", zlib.crc32(t + body)))
+
+
+def test_image_decoders_give_the_constructed_pixels(tmp_path):
+    """The image codec is host code that needs no imaging library: files
+    built here from known pixels (an Adam7 16-bit grayscale PNG, a 4-bit
+    palette PNG, P5 and P6 at maxval 255, a bottom-up 24-bit BMP) decode to
+    those pixels on whatever machine runs the tests."""
+    import struct
+    import zlib
+
+    from libwave_tpu_torch.vision import images
+
+    rng = np.random.default_rng(9)
+    H, W = 5, 7
+    gray = rng.integers(0, 256, (H, W)).astype(np.uint8)
+    rgb = rng.integers(0, 256, (H, W, 3)).astype(np.uint8)
+    luma = images._to_luma(rgb)
+    # 16-bit grayscale, Adam7: samples below 256 keep their value in PIL's
+    # clip to L
+    passes = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4),
+              (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
+    data = b""
+    for x0, y0, dx, dy in passes:
+        sub = gray[y0::dy, x0::dx].astype(">u2")
+        for row in sub:
+            data += b"\x00" + row.tobytes()
+    png16 = (b"\x89PNG\r\n\x1a\n"
+             + _png_chunk(b"IHDR", struct.pack(">IIBBBBB", W, H, 16, 0, 0, 0,
+                                               1))
+             + _png_chunk(b"IDAT", zlib.compress(data))
+             + _png_chunk(b"IEND", b""))
+    idx = rng.integers(0, 16, (H, W)).astype(np.uint8)
+    palette = rng.integers(0, 256, (16, 3)).astype(np.uint8)
+    packed = np.zeros((H, (W + 1) // 2), np.uint8)
+    for x in range(W):
+        packed[:, x // 2] |= idx[:, x] << (4 * (1 - x % 2))
+    pal_png = (b"\x89PNG\r\n\x1a\n"
+               + _png_chunk(b"IHDR", struct.pack(">IIBBBBB", W, H, 4, 3, 0,
+                                                 0, 0))
+               + _png_chunk(b"PLTE", palette.tobytes())
+               + _png_chunk(b"IDAT", zlib.compress(b"".join(
+                   b"\x00" + r.tobytes() for r in packed)))
+               + _png_chunk(b"IEND", b""))
+    stride = (W * 3 + 3) & ~3
+    rows = np.zeros((H, stride), np.uint8)
+    rows[:, :W * 3] = rgb[..., ::-1].reshape(H, -1)
+    bmp_px = rows[::-1].tobytes()
+    dib = struct.pack("<IiiHHIIiiII", 40, W, H, 1, 24, 0, len(bmp_px), 0, 0,
+                      0, 0)
+    bmp = (b"BM" + struct.pack("<IHHI", 54 + len(bmp_px), 0, 0, 54) + dib
+           + bmp_px)
+    cases = {
+        "a.png": (png16, gray),
+        "b.png": (pal_png, images._to_luma(palette)[idx]),
+        "c.pgm": (b"P5\n%d %d\n255\n" % (W, H) + gray.tobytes(), gray),
+        "d.ppm": (b"P6\n%d %d\n255\n" % (W, H) + rgb.tobytes(), luma),
+        "e.bmp": (bmp, luma),
+    }
+    for name, (raw, want) in cases.items():
+        (tmp_path / name).write_bytes(raw)
+        np.testing.assert_array_equal(images.load_image(str(tmp_path / name)),
+                                      want, err_msg=name)
+    stack = images.read_image_sequence(str(tmp_path))
+    assert stack.shape == (5, H, W)

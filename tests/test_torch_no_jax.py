@@ -64,6 +64,22 @@ sim = euroc_sim.EurocSimParams(duration=0.4, cam_hz=5.0, nb_landmarks=30,
 euroc_sim.generate_euroc_sequence(root, sim, seed=1, device="cpu")
 got = images.read_image_sequence(os.path.join(root, "mav0", "cam0", "data"))
 assert (got == euroc_sim.cam0_frames(sim, seed=1)).all(), "PNG round trip"
+# a VO dataset through its directory, BA problems from it, a batch of two
+import torch
+from libwave_tpu_torch.optim import ba
+from libwave_tpu_torch.sim import vo_dataset
+params = vo_dataset.VoSimParams(nb_landmarks=30, steps=100, hz=10.0,
+                                fx=200.0, fy=200.0)
+ds = vo_dataset.generate_vo_dataset(params, seed=2, device="cpu")
+vo_dataset.save_vo_dataset(ds, os.path.join(root, "vo"))
+back = vo_dataset.load_vo_dataset(os.path.join(root, "vo"), device="cpu")
+problems, states = zip(*(ba.ba_from_dataset(
+    d, noise_pixels=0.5, generator=torch.Generator().manual_seed(0),
+    device="cpu") for d in (ds, back)))
+assert torch.equal(problems[0].uv, problems[1].uv), "dataset round trip"
+out, info = ba.solve_ba_batched(problems, states,
+                                ba.BAConfig(max_iterations=2))
+assert info["costs"].shape == (2, 2) and torch.isfinite(out.lm).all()
 print("imported", len(names), "modules")
 """
 
