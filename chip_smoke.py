@@ -257,6 +257,51 @@ it imports no JAX. Phases, each reported on its own line:
     equal ``track_sequence``'s with its generator, the top-2 launched once
     per sequence per frame, aggregate frames/s against one sequence at a
     time.
+26. gps_trajectory: the GPS/INS smoother of ``bench_trajectory``: 200
+    states at 10 Hz on a constant twist (numpy seed 0), GPS fixes with a
+    0.30 m bias and 3 cm noise written as LLH about a datum on the host,
+    on the card back into ENU (``enu_point_from_llh``, f64, within 1e-6 m
+    of the CPU's), into a ``MeasurementBuffer`` (``insert_batch``) and
+    read back per state (``get_interpolated``); GPS-with-bias, motion,
+    decaying-bias (tau 1e9, sqrt_info 100), pose-prior and twist-prior
+    banks on a ``PoseVelBiasState`` started 0.1 m off the truth, solved by
+    ``solve_trajectory_gn`` (25 iterations, f64, tangent 3,000) under sync
+    debug mode with no synchronizing call: the cost trace within rtol 1e-9 of the port's CPU solve
+    of the same fixes, the states within 1e-6, the final cost within rtol
+    1e-6 of the JAX package's (``tests/trajectory_anchors.py``); position
+    and bias errors, ms and CUDA kernels per LM iteration, peak
+    allocation;
+27. nlls: ``tests/test_nlls.py``'s exponential curve (68 points, numpy
+    seed 0) with autodiff, numeric and analytic Jacobians, then 4,096
+    fits (one noise draw each) under ``torch.func.vmap``, 100
+    iterations, f64, under sync debug mode with no synchronizing call:
+    cost traces within rtol 1e-9 of the CPU's, parameters within 1e-8,
+    every fit within the JAX test's bounds (|m - 0.3| < 0.02,
+    |c - 0.1| < 0.05); fits/s;
+28. float_flann: ``tests/test_flann.py``'s planted SIFT-like banks at
+    16,384 x 16,384 x 128 f32: ``exact`` equal to an f64 oracle on the
+    card in every row whose best and second distances differ by more than
+    1e-5 of the best; kdtree, kmeans and composite with the test's
+    parameters and with 9 key bits (the test's 32 rows per bucket at this
+    size; its parameters leave 256 rows a bucket and keep 96), each recall
+    within 0.01 of the JAX package's on the same banks
+    (``tests/flann_float_anchors.py``), the 9-bit ones above the JAX
+    test's floors (0.85, 0.9, 0.95), candidates below N2; each k-means
+    build's 8 segment reduces counted, held to the plain version bit for
+    bit, and a second build's centroids equal bit for bit; at the test's
+    own 2,048 / 256 each recall within 0.01 of the JAX package's; index
+    build seconds and matches/s;
+29. leaves: 10^6 LLH points to ECEF and back and to ENU and back (f64); a
+    65,536-record, 4-sensor ``MeasurementBuffer`` with 65,536
+    interpolated reads (the first 1,024 a sensor against the CPU's, all
+    against a numpy searchsorted oracle); a 10,000-step
+    ``compose_pose_with_covariance`` chain; 2,000 closed-loop quadrotor
+    steps (dt 0.001: at 0.005 the loop saturates and no two roundings
+    agree) and 2,000 gimbal steps tracking a target; a 10,000-step
+    two-wheel roll-out; ``from_dict`` of ``FloatIndexParams`` and of a
+    nested dataclass with a {rows, cols, data} matrix (no PyYAML on the
+    card). Each held to the CPU's run: 1e-9 at f64 (1e-6 m for metres
+    through ECEF), with its time.
 
 The line before the last is a JSON object describing each kernel (its
 launches on its main path, its largest difference from the plain version,
@@ -300,12 +345,16 @@ from libwave_tpu_torch import (
     bench_frontend,
     bench_lidar,
     bench_problem,
+    bench_trajectory,
     bench_windowed,
+    kinematics,
     native,
 )
 from libwave_tpu_torch.ops import hamming, segmm
 from libwave_tpu_torch.benchmark import Trajectory, absolute_trajectory_error
-from libwave_tpu_torch.geometry import so3
+from libwave_tpu_torch.containers import measurement
+from libwave_tpu_torch.geography import world_frame
+from libwave_tpu_torch.geometry import pose_cov, so3
 from libwave_tpu_torch.geometry.se3 import SE3
 from libwave_tpu_torch.matching import (
     estimate_info_censi,
@@ -316,7 +365,8 @@ from libwave_tpu_torch.matching import (
     segment_ground,
 )
 from libwave_tpu_torch.matching.pointcloud import PointCloud, make_cloud
-from libwave_tpu_torch.optim import ba, schur
+from libwave_tpu_torch.kinematics import gimbal
+from libwave_tpu_torch.optim import ba, factors, nlls, schur
 from libwave_tpu_torch.optim.pose_graph import (
     BetweenBank,
     PoseGraphConfig,
@@ -335,8 +385,9 @@ from libwave_tpu_torch.pipelines import (
     windowed_vio,
 )
 from libwave_tpu_torch.sim import euroc_sim, vo_dataset
+from libwave_tpu_torch.utils import config as utils_config
 from libwave_tpu_torch.utils import precision
-from libwave_tpu_torch.vision import flann, images, matcher
+from libwave_tpu_torch.vision import flann, flann_float, images, matcher
 from libwave_tpu_torch.vision.descriptor import (
     brisk_describe,
     orb_describe_pyramid,
@@ -473,6 +524,46 @@ BATCH = 8  # batched: B copies of the orb sequence
 LIDAR_MODULES = tuple(importlib.import_module(f"libwave_tpu_torch.{m}") for m in (
     "matching.pointcloud", "matching.knn", "matching.loop", "matching.icp",
     "matching.gicp", "matching.ndt", "optim.pose_graph"))
+
+# The trajectory back end and the leaves (gps_trajectory, nlls, float_flann,
+# leaves). JAX anchors, from `JAX_PLATFORMS=cpu python
+# tests/trajectory_anchors.py` and `... tests/flann_float_anchors.py`:
+JAX_GPS_FINAL_COST = 0.14777103915596304
+JAX_FLANN_RECALL = {
+    "test_2048/kdtree": 0.984375, "test_2048/kmeans": 1.0,
+    "test_2048/composite": 1.0,
+    "test_16384/kdtree": 0.4434814453125,
+    "test_16384/kmeans": 0.3729248046875,
+    "test_16384/composite": 0.45831298828125,
+    "bits9_16384/kdtree": 0.93646240234375,
+    "bits9_16384/kmeans": 0.99664306640625,
+    "bits9_16384/composite": 0.999755859375,
+}
+GPS_CPU_RTOL = 1e-9  # card vs CPU cost trace
+GPS_STATE_TOL = 1e-6  # card vs CPU states (m; the other fields alike)
+GPS_JAX_RTOL = 1e-6  # final cost against the JAX package's
+NLLS_BATCH = 4096
+NLLS_RTOL = 1e-9  # card vs CPU cost trace
+# card vs CPU parameters: the cost is flat at the minimum, and a cost within
+# rtol 1e-9 (1.1e-11 of 0.011, curvature ~1e4) leaves them ~5e-8 apart
+NLLS_X_TOL = 1e-8
+FLANN_N = 16384
+LEAF_SEED = 12
+LEAF_F64_TOL = 1e-9  # card vs CPU at f64 (degrees, unitless, seconds)
+LEAF_M_TOL = 1e-6  # card vs CPU in metres through ECEF (~6.4e6 m)
+LEAF_POINTS = 1_000_000
+LEAF_RECORDS = 65_536
+LEAF_CPU_READS = 1024  # reads a sensor the CPU run repeats
+LEAF_CHAIN = 10_000
+LEAF_HOVER_STEPS = 2000
+# the JAX tests' step: at 0.005 s the attitude loop saturates its motors on
+# 1,550 of 2,000 steps, and a 1e-13 m start offset grows to 0.1 m by step
+# 1,000 (f64, CPU), so no two roundings agree; at 0.001 s it stays 1e-13
+LEAF_HOVER_DT = 0.001
+LEAF_HOVER_START = (0.0, 0.0, 0.0, 0.0, 0.0, 0.0)
+LEAF_HOVER_TARGET = (1.0, 0.0, 2.0)
+LEAF_GIMBAL_STEPS = 2000
+LEAF_ROLLOUT = 10_000
 
 
 class SmokeFailure(RuntimeError):
@@ -3092,6 +3183,478 @@ def phase_batched(frames, dev, smi):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# The trajectory back end and the leaves (gps_trajectory, nlls, float_flann,
+# leaves)
+# ---------------------------------------------------------------------------
+
+
+def _traces_close(what, got, ref, rtol):
+    """Cost traces within ``rtol`` (costs at rounding level, below 1e-20 of
+    the largest, within that)."""
+    got, ref = got.double().cpu(), ref.double().cpu()
+    floor = 1e-20 * float(ref.abs().max())
+    err = (got - ref).abs() - rtol * ref.abs()
+    check(bool((err <= floor).all()), f"{what}: cost trace {got.tolist()} "
+          f"against {ref.tolist()} (rtol {rtol})")
+    return float(((got - ref).abs() / ref.abs().clamp(min=1e-300)).max())
+
+
+def _max_gap(a, b):
+    return float((a.detach().double().cpu() - b.detach().double().cpu())
+                 .abs().max())
+
+
+def phase_gps_trajectory(dev, smi):
+    """The GPS/INS smoother: LLH fixes -> ENU -> MeasurementBuffer ->
+    GPS-with-bias, motion and decaying-bias banks -> solve_trajectory_gn."""
+    truth = bench_trajectory.gps_truth()
+    llh = bench_trajectory.gps_fixes(truth)  # written on the host, f64
+    T = llh.shape[0]
+
+    def build():
+        enu = bench_trajectory.gps_fixes_enu(llh, dev)
+        return enu, bench_trajectory.gps_problem(truth, enu)
+
+    (enu, (state0, fns, ok)), t_build = _synced(build)
+    check(bool(ok.all().cpu()), "gps_trajectory: a state's fix was not "
+          "found in the measurement buffer")
+    enu_gap = _max_gap(enu, bench_trajectory.gps_fixes_enu(llh, "cpu"))
+    check(enu_gap <= LEAF_M_TOL, f"gps_trajectory: the fixes' ENU on the "
+          f"card {enu_gap} m from the CPU's")
+    iters = bench_trajectory.GPS_ITERS
+
+    def solve(n=iters):
+        return factors.solve_trajectory_gn(state0, fns, num_iters=n)
+
+    solve(1)  # first use: torch.func's set-up
+    torch.cuda.reset_peak_memory_stats(dev)
+    ((out, info), wall), syncs = _sync_free(lambda: _synced(solve))
+    check(not syncs, f"gps_trajectory: synchronizing calls in the LM solve: "
+          f"{dict(syncs)}")
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    per_iter = _busy(lambda: solve(2))[3] - _busy(lambda: solve(1))[3]
+    # the port's CPU solve of the same arrays (the card's fixes)
+    state_c, fns_c, _ = bench_trajectory.gps_problem(truth, enu.cpu())
+    (out_c, info_c), wall_c = _synced(
+        lambda: factors.solve_trajectory_gn(state_c, fns_c, num_iters=iters))
+    rel = _traces_close("gps_trajectory: card vs CPU", info["costs"],
+                        info_c["costs"], GPS_CPU_RTOL)
+    gaps = {f: _max_gap(getattr(out, f), getattr(out_c, f))
+            for f in out._fields}
+    check(max(gaps.values()) <= GPS_STATE_TOL, f"gps_trajectory: card vs "
+          f"CPU states {gaps}")
+    final = float(info["final_cost"])
+    initial = float(info["initial_cost"])
+    jax_rel = abs(final - JAX_GPS_FINAL_COST) / JAX_GPS_FINAL_COST
+    check(final < initial and jax_rel <= GPS_JAX_RTOL,
+          f"gps_trajectory: final cost {final} (initial {initial}), the JAX "
+          f"package's {JAX_GPS_FINAL_COST}")
+    err = bench_trajectory.gps_errors(out, truth)
+    err0 = bench_trajectory.gps_errors(state0, truth)
+    print(f"gps_trajectory: {T} states at 10 Hz (tangent {T * out.DIM}), "
+          f"fixes as LLH -> ENU -> MeasurementBuffer -> 5 factor banks, "
+          f"built on the card in {t_build:.3f} s (ENU {enu_gap:.2e} m from "
+          f"the CPU's); {iters} LM iterations at f64 under sync debug "
+          f"mode, no synchronizing call: cost {initial:.9e} -> {final:.17e} (the JAX package's "
+          f"{JAX_GPS_FINAL_COST:.17e}, rel {jax_rel:.2e}); card vs CPU: "
+          f"costs rel {rel:.2e}, states {max(gaps.values()):.2e}; position "
+          f"error {err['position_m']:.4f} m (start {err0['position_m']:.4f})"
+          f", bias error {err['bias_m']:.4f} m (start {err0['bias_m']:.4f}); "
+          f"{1e3 * wall / iters:.3f} ms per LM iteration (CPU "
+          f"{1e3 * wall_c / iters:.1f}), {per_iter} CUDA kernels per "
+          f"iteration, peak allocation {peak:.3f} GiB | {smi}")
+
+
+def _curve_solve(X, Y, jac, dev):
+    p0 = torch.zeros(2, dtype=torch.float64, device=dev)
+    cfg = nlls.LMConfig(max_iterations=bench_trajectory.CURVE_ITERS)
+    if Y.dim() == 1:
+        return nlls.lm_solve(nlls.exp_curve_residual, p0, args=(X, Y),
+                             jac=jac, config=cfg)
+    return torch.func.vmap(lambda yy: nlls.lm_solve(
+        nlls.exp_curve_residual, p0, args=(X, yy), jac=jac, config=cfg))(Y)
+
+
+def _curve_jacobian(p, x, y):
+    e = torch.exp(p[0] * x + p[1])
+    return torch.stack([-x * e, -e], dim=-1)
+
+
+def _fit_held(what, res, ref):
+    rel = _traces_close(what, res.cost_trace, ref.cost_trace, NLLS_RTOL)
+    gap = _max_gap(res.x, ref.x)
+    check(gap <= NLLS_X_TOL, f"{what}: x {gap} from the CPU's")
+    m, c = (res.x[..., k].cpu() for k in range(2))
+    dm, dc = (float((v - t).abs().max()) for v, t in (
+        (m, bench_trajectory.CURVE_M), (c, bench_trajectory.CURVE_C)))
+    check(dm < bench_trajectory.CURVE_BOUNDS[0]
+          and dc < bench_trajectory.CURVE_BOUNDS[1],
+          f"{what}: |m - 0.3| {dm}, |c - 0.1| {dc}")
+    return rel, gap, dm, dc
+
+
+def phase_nlls(dev, smi):
+    """tests/test_nlls.py's exponential curve, three Jacobians, then a
+    batch of fits under torch.func.vmap."""
+    x, y = bench_trajectory.curve_batch(NLLS_BATCH)
+    X, Y = (torch.as_tensor(a, device=dev) for a in (x, y))
+    Xc, Yc = torch.as_tensor(x), torch.as_tensor(y)
+    kinds = {"autodiff": None,
+             "numeric": nlls.numeric_jacobian(nlls.exp_curve_residual),
+             "analytic": _curve_jacobian}
+    parts = []
+    for kind, jac in kinds.items():
+        _curve_solve(X, Y[0], jac, dev)
+        (res, dt), syncs = _sync_free(
+            lambda: _synced(lambda: _curve_solve(X, Y[0], jac, dev)))
+        check(not syncs, f"nlls {kind}: synchronizing calls: {dict(syncs)}")
+        ref = _curve_solve(Xc, Yc[0], jac, "cpu")
+        rel, gap, _, _ = _fit_held(f"nlls {kind}", res, ref)
+        parts.append(f"{kind} m {float(res.x[0]):.6f} c {float(res.x[1]):.6f}"
+                     f" in {int(res.iterations)} steps, {1e3 * dt:.1f} ms "
+                     f"(card vs CPU: costs rel {rel:.1e}, x {gap:.1e})")
+    _curve_solve(X, Y[:8], None, dev)
+    (res, dt), syncs = _sync_free(
+        lambda: _synced(lambda: _curve_solve(X, Y, None, dev)))
+    check(not syncs, f"nlls batch: synchronizing calls: {dict(syncs)}")
+    ref, dt_c = _synced(lambda: _curve_solve(Xc, Yc, None, "cpu"))
+    rel, gap, dm, dc = _fit_held("nlls batch", res, ref)
+    print(f"nlls: the curve-fitting tutorial (68 points) under sync debug "
+          f"mode, no synchronizing call: {'; '.join(parts)} | {smi}")
+    print(f"nlls: {NLLS_BATCH} fits under torch.func.vmap, "
+          f"{bench_trajectory.CURVE_ITERS} iterations, f64, no sync: "
+          f"{NLLS_BATCH / dt:.1f} fits/s ({1e3 * dt:.1f} ms; CPU "
+          f"{NLLS_BATCH / dt_c:.1f} fits/s); card vs CPU: costs rel "
+          f"{rel:.1e}, x {gap:.1e}; every fit |m - 0.3| <= {dm:.4f}, "
+          f"|c - 0.1| <= {dc:.4f} (bounds 0.02, 0.05); all converged "
+          f"{bool(res.converged.all())} | {smi}")
+
+
+def _float_oracle(d1, d2, rows=4096):
+    """(argmin, clear) of an f64 L2 search on the card, in chunks of query
+    rows: ``clear`` marks the rows whose best and second distances differ
+    by more than 1e-5 of the best."""
+    b = d2.double()
+    bb = (b * b).sum(1)
+    ids, clear = [], []
+    for k in range(0, d1.shape[0], rows):
+        a = d1[k:k + rows].double()
+        d = (a * a).sum(1)[:, None] + bb[None] - 2.0 * a @ b.T
+        s, i = torch.topk(d, 2, dim=1, largest=False)
+        ids.append(i[:, 0])
+        clear.append(s[:, 1] - s[:, 0] > 1e-5 * s[:, 0])
+    return torch.cat(ids), torch.cat(clear)
+
+
+def _kmeans_held(d2, m2, p, stats):
+    """Build ``p``'s index with every k-means sum (``seg_reduce``) also
+    run through its plain version on the same inputs, equal bit for
+    bit."""
+    def held(vals, idx, num_segments):
+        got = segmm.seg_reduce(vals, idx, num_segments)
+        ref = segmm.seg_reduce_reference(vals, idx, num_segments)
+        check(torch.equal(got, ref), f"float_flann: seg_reduce call "
+              f"{stats['calls']} differs from its plain version by "
+              f"{_max_gap(got, ref)}")
+        stats["calls"] += 1
+        return got
+
+    view = types.SimpleNamespace(**{**vars(segmm), "seg_reduce": held})
+    with mock.patch.object(flann_float, "segmm", view):
+        return flann_float.build_float_index(d2, m2, p)
+
+
+def phase_float_flann(dev, smi):
+    """Planted SIFT-like banks through the float indexes."""
+    FP = flann_float.FloatIndexParams
+    d1, d2, src = bench_trajectory.planted_float(
+        np.random.default_rng(bench_trajectory.FLANN_SEED),
+        n_train=FLANN_N, n_query=FLANN_N)
+    D1, D2 = (torch.as_tensor(a, device=dev) for a in (d1, d2))
+    m1 = m2 = torch.ones(FLANN_N, dtype=torch.bool, device=dev)
+    src_t = torch.as_tensor(src, device=dev)
+    oracle, clear = _float_oracle(D1, D2)
+    p = FP(method="exact")
+    index = flann_float.build_float_index(D2, m2, p)
+    flann_float.float_match(D1, m1, index, p)
+    (idx, _, _), dt = _synced(lambda: flann_float.float_match(D1, m1, index,
+                                                              p))
+    wrong = int(((idx.long() != oracle) & clear).sum())
+    check(wrong == 0, f"float_flann: exact differs from the f64 oracle in "
+          f"{wrong} clear rows")
+    lines = [f"exact {FLANN_N / dt:.4e} matches/s, equal to the f64 oracle "
+             f"in all {int(clear.sum())} clear rows (of {FLANN_N}), recall "
+             f"{float((idx == src_t).double().mean()):.4f}"]
+    for cfg, extra in (("test", {}), ("bits9", {"key_bits": 9})):
+        for method in ("kdtree", "kmeans", "composite"):
+            p = FP(method=method, **{**bench_trajectory.FLANN_TEST, **extra})
+            reset_launches()
+            index, t_build = _synced(
+                lambda: flann_float.build_float_index(D2, m2, p))
+            counts = launch_counts()
+            want = p.kmeans_iterations if method != "kdtree" else 0
+            check(counts["seg_reduce"] == want and sum(counts.values()) == want,
+                  f"float_flann {cfg} {method}: launches {counts}, want "
+                  f"{want} seg_reduce")
+            flann_float.float_match(D1, m1, index, p)
+            (idx, _, diag), dt = _synced(
+                lambda: flann_float.float_match(D1, m1, index, p))
+            recall = float((idx == src_t).double().mean())
+            cand = int(diag["num_candidates"].max())
+            anchor = JAX_FLANN_RECALL[f"{cfg}_16384/{method}"]
+            check(abs(recall - anchor) <= 0.01 and cand < FLANN_N,
+                  f"float_flann {cfg} {method}: recall {recall} (the JAX "
+                  f"package's {anchor}), candidates up to {cand}")
+            if cfg == "bits9":
+                floor = bench_trajectory.RECALL_FLOORS[method]
+                check(recall > floor, f"float_flann bits9 {method}: recall "
+                      f"{recall} under the JAX test's floor {floor}")
+            held = ""
+            if want:
+                stats = {"calls": 0}
+                again = _kmeans_held(D2, m2, p, stats)
+                check(stats["calls"] == want
+                      and torch.equal(again.centroids, index.centroids),
+                      f"float_flann {cfg} {method}: {stats['calls']} held "
+                      f"calls; centroids equal on a second build: "
+                      f"{torch.equal(again.centroids, index.centroids)}")
+                held = (f", {want} seg_reduce launches held to the plain "
+                        f"version bit for bit, a second build's centroids "
+                        f"equal bit for bit")
+            lines.append(f"{cfg} {method} (key_bits {p.key_bits}): recall "
+                         f"{recall:.4f} (JAX {anchor:.4f}), candidates up to "
+                         f"{cand}, build {t_build:.3f} s, {FLANN_N / dt:.4e} "
+                         f"matches/s{held}")
+    # tests/test_flann.py's own size, against the JAX package's recall
+    s1, s2, ssrc = bench_trajectory.planted_float(
+        np.random.default_rng(bench_trajectory.FLANN_SEED))
+    S1, S2 = (torch.as_tensor(a, device=dev) for a in (s1, s2))
+    for method in ("kdtree", "kmeans", "composite"):
+        p = FP(method=method, **bench_trajectory.FLANN_TEST)
+        index = flann_float.build_float_index(
+            S2, torch.ones(2048, dtype=torch.bool, device=dev), p)
+        idx, _, _ = flann_float.float_match(
+            S1, torch.ones(256, dtype=torch.bool, device=dev), index, p)
+        recall = float((idx.cpu().numpy() == ssrc).mean())
+        anchor = JAX_FLANN_RECALL[f"test_2048/{method}"]
+        check(abs(recall - anchor) <= 0.01
+              and recall > bench_trajectory.RECALL_FLOORS[method],
+              f"float_flann 2048 {method}: recall {recall}, the JAX "
+              f"package's {anchor}")
+        lines.append(f"2048/256 {method} recall {recall:.4f} (JAX "
+                     f"{anchor:.4f})")
+    print(f"float_flann: planted {FLANN_N} x {FLANN_N} x 128 f32 banks: "
+          f"{'; '.join(lines)} | {smi}")
+
+
+def _held_cpu(what, card, cpu, tol):
+    gap = max(_max_gap(a, b) for a, b in zip(
+        torch.utils._pytree.tree_leaves(card),
+        torch.utils._pytree.tree_leaves(cpu)))
+    check(gap <= tol, f"leaves {what}: card vs CPU {gap} (tolerance {tol})")
+    return gap
+
+
+def _both(fn, dev):
+    """``fn(device)`` on the card ``dev`` (synchronized, timed) and on the
+    CPU."""
+    card, dt = _synced(lambda: fn(dev))
+    return card, dt, fn(torch.device("cpu"))
+
+
+def _geodesy(llh, dev):
+    llh = torch.as_tensor(llh, device=dev)
+    ecef = world_frame.ecef_point_from_llh(llh)
+    back = world_frame.llh_point_from_ecef(ecef)
+    enu = world_frame.enu_point_from_llh(llh, bench_trajectory.DATUM_LLH)
+    return ecef, back, enu, world_frame.llh_point_from_enu(
+        enu, bench_trajectory.DATUM_LLH)
+
+
+def _buffer_reads(rec, reads, dev):
+    times, sensors, values = (torch.as_tensor(a, device=dev) for a in rec)
+    buf = measurement.insert_batch(
+        measurement.measurement_buffer(times.shape[0], values.shape[1],
+                                       torch.float64, dev),
+        times, sensors, values)
+    out = [measurement.get_interpolated(
+        buf, torch.as_tensor(r, device=dev), s) for s, r in enumerate(reads)]
+    return [v for v, _ in out], [ok for _, ok in out], buf
+
+
+def _oracle_reads(rec, reads):
+    """numpy: each sensor's records sorted by time, the bracketing pair by
+    searchsorted, the linear blend (exact records read back as stored)."""
+    times, sensors, values = rec
+    vals, oks = [], []
+    for s, r in enumerate(reads):
+        t, v = times[sensors == s], values[sensors == s]
+        order = np.argsort(t)
+        t, v = t[order], v[order]
+        hi = np.clip(np.searchsorted(t, r, side="left"), 0, len(t) - 1)
+        lo = np.clip(np.searchsorted(t, r, side="right") - 1, 0, len(t) - 1)
+        ok = (r >= t[0]) & (r <= t[-1])
+        den = t[hi] - t[lo]
+        w = np.where(den > 0, (r - t[lo]) / np.where(den == 0, 1.0, den), 0.0)
+        vals.append(v[lo] + w[:, None] * (v[hi] - v[lo]))
+        oks.append(ok)
+    return vals, oks
+
+
+def _pose_chain(steps, covs, dev):
+    q, t = (torch.as_tensor(a, device=dev) for a in steps)
+    c = torch.as_tensor(covs, device=dev)
+    acc = pose_cov.PoseWithCovariance.certain(
+        SE3.identity(dtype=torch.float64, device=dev))
+    for k in range(q.shape[0]):
+        acc = pose_cov.compose_pose_with_covariance(
+            acc, pose_cov.PoseWithCovariance(SE3(q=q[k], t=t[k]), c[k]))
+    return acc
+
+
+def _hover(dev):
+    p = kinematics.QuadrotorParams()
+    s = kinematics.quadrotor_init(LEAF_HOVER_START, torch.float64, dev)
+    target = torch.as_tensor(LEAF_HOVER_TARGET, dtype=torch.float64,
+                             device=dev)
+    yaw = torch.zeros((), dtype=torch.float64, device=dev)
+    for _ in range(LEAF_HOVER_STEPS):
+        s = kinematics.quadrotor_step(p, s, target, yaw, LEAF_HOVER_DT)
+    return s
+
+
+def _gimbal(targets, dev):
+    p = kinematics.GimbalParams(camera_offset_rpy=(0.05, -0.02, 0.1))
+    s = kinematics.gimbal_init(torch.float64, dev)
+    targets = torch.as_tensor(targets, device=dev)
+    for k in range(LEAF_GIMBAL_STEPS):
+        if k % 10 == 0:  # the camera's 100 Hz target updates
+            s = kinematics.gimbal_track_target(p, s, targets[k // 10])
+        motors, s = gimbal.gimbal_attitude_control(s, 0.001)
+        s = kinematics.gimbal_step(p, s, motors, 0.001)
+    return s
+
+
+@dataclasses.dataclass(frozen=True)
+class _Camera:
+    name: str = "cam0"
+    K: np.ndarray = utils_config.config_field(None)
+    rate_hz: float = 20.0
+
+
+@dataclasses.dataclass(frozen=True)
+class _Rig:
+    camera: _Camera = dataclasses.field(default_factory=_Camera)
+    matcher: flann_float.FloatIndexParams = dataclasses.field(
+        default_factory=flann_float.FloatIndexParams)
+    frames: int = utils_config.config_field(0, required=True)
+
+
+def phase_leaves(dev, smi):
+    """The geodesy, container, pose-covariance, simulator and config
+    leaves on the card against the same on the CPU."""
+    rng = np.random.default_rng(LEAF_SEED)
+    lines = []
+    llh = np.stack([rng.uniform(-85, 85, LEAF_POINTS),
+                    rng.uniform(-180, 180, LEAF_POINTS),
+                    rng.uniform(-100, 9000, LEAF_POINTS)], axis=-1)
+    card, dt, cpu = _both(lambda d: _geodesy(llh, d), dev)
+    ecef, back, enu, back2 = card
+    gaps = [_held_cpu("ECEF", ecef, cpu[0], LEAF_M_TOL),
+            _held_cpu("ENU", enu, cpu[2], LEAF_M_TOL)]
+    for b, bc in ((back, cpu[1]), (back2, cpu[3])):
+        gaps.append(_held_cpu("LLH degrees", b[:, :2], bc[:, :2],
+                              LEAF_F64_TOL))
+        gaps.append(_held_cpu("LLH height", b[:, 2], bc[:, 2], LEAF_M_TOL))
+    trip = _max_gap(back[:, :2], torch.as_tensor(llh[:, :2]))
+    check(trip <= 1e-9, f"leaves: LLH round trip {trip} degrees")
+    lines.append(f"world_frame: {LEAF_POINTS} LLH points f64 to ECEF and "
+                 f"back, and to ENU and back, in {1e3 * dt:.2f} ms (round "
+                 f"trip {trip:.1e} deg; card vs CPU {max(gaps):.1e})")
+
+    times = np.sort(rng.uniform(0, 600, LEAF_RECORDS))
+    sensors = rng.integers(0, 4, LEAF_RECORDS).astype(np.int32)
+    values = rng.normal(size=(LEAF_RECORDS, 3))
+    rec = (times, sensors, values)
+    reads = [np.concatenate([times[sensors == s][:64], rng.uniform(
+        -1, 601, LEAF_RECORDS // 4 - 64)]) for s in range(4)]
+    (vals, oks, buf), dt = _synced(lambda: _buffer_reads(rec, reads, dev))
+    few = [r[:LEAF_CPU_READS] for r in reads]
+    vals_c, oks_c, _ = _buffer_reads(rec, few, "cpu")
+    ovals, ooks = _oracle_reads(rec, reads)
+    for s in range(4):
+        check(torch.equal(oks[s][:LEAF_CPU_READS].cpu(), oks_c[s])
+              and np.array_equal(oks[s].cpu().numpy(), ooks[s]),
+              f"leaves: sensor {s}'s ok flags differ")
+    gap = max(_held_cpu("reads", v[:LEAF_CPU_READS], vc, LEAF_F64_TOL)
+              for v, vc in zip(vals, vals_c))
+    ogap = max(_max_gap(v[ok], torch.as_tensor(o)[ok.cpu()])
+               for v, o, ok in zip(vals, ovals, oks))
+    check(ogap <= LEAF_F64_TOL, f"leaves: reads {ogap} from the numpy "
+          f"oracle")
+    check(int(measurement.size(buf)) == LEAF_RECORDS, "leaves: buffer size")
+    lines.append(f"measurement: {LEAF_RECORDS} records of 4 sensors, "
+                 f"{sum(len(r) for r in reads)} interpolated reads in "
+                 f"{1e3 * dt:.1f} ms (the first {LEAF_CPU_READS} a sensor "
+                 f"against the CPU's {gap:.1e}; all against a numpy "
+                 f"searchsorted oracle {ogap:.1e}, flags equal)")
+
+    axis = rng.normal(size=(LEAF_CHAIN, 3)) * 0.02
+    steps = (np.concatenate([np.ones((LEAF_CHAIN, 1)), 0.5 * axis], axis=1),
+             rng.normal(size=(LEAF_CHAIN, 3)) * 0.1)
+    steps = (steps[0] / np.linalg.norm(steps[0], axis=1, keepdims=True),
+             steps[1])
+    A = rng.normal(size=(LEAF_CHAIN, 6, 6)) * 1e-3
+    covs = A @ np.swapaxes(A, -1, -2)
+    card, dt, cpu = _both(lambda d: _pose_chain(steps, covs, d), dev)
+    scale = float(cpu.cov.abs().max())
+    gap = _held_cpu("pose chain", card, cpu, LEAF_F64_TOL * max(1.0, scale))
+    lines.append(f"pose_cov: a chain of {LEAF_CHAIN} "
+                 f"compose_pose_with_covariance steps in {dt:.2f} s "
+                 f"({1e6 * dt / LEAF_CHAIN:.1f} us a step; final |t| "
+                 f"{float(torch.linalg.vector_norm(card.pose.t)):.3f} m, "
+                 f"max cov {scale:.3e}; card vs CPU {gap:.1e})")
+
+    card, dt, cpu = _both(_hover, dev)
+    gap = _held_cpu("quadrotor", card, cpu, LEAF_F64_TOL)
+    miss = float(torch.linalg.vector_norm(card.position.cpu() - torch.as_tensor(
+        LEAF_HOVER_TARGET)))
+    targets = rng.normal(size=(LEAF_GIMBAL_STEPS // 10, 3)) + [0.0, 2.0, 1.0]
+    gcard, gdt, gcpu = _both(lambda d: _gimbal(targets, d), dev)
+    ggap = _held_cpu("gimbal", gcard, gcpu, LEAF_F64_TOL)
+    lines.append(f"quadrotor: {LEAF_HOVER_STEPS} closed-loop steps of "
+                 f"{LEAF_HOVER_DT} s in {dt:.2f} s ({1e3 * dt / LEAF_HOVER_STEPS:.3f}"
+                 f" ms a step; {miss:.3f} m from the hover point; card vs CPU "
+                 f"{gap:.1e}); gimbal: {LEAF_GIMBAL_STEPS} steps tracking "
+                 f"{len(targets)} targets in {gdt:.2f} s (card vs CPU "
+                 f"{ggap:.1e})")
+
+    u = np.stack([rng.uniform(0.5, 1.5, LEAF_ROLLOUT),
+                  rng.normal(0, 0.5, LEAF_ROLLOUT)], axis=-1)
+    card, dt, cpu = _both(lambda d: kinematics.simulate_two_wheel(
+        torch.zeros(3, dtype=torch.float64, device=d),
+        torch.as_tensor(u, device=d), 0.01), dev)
+    gap = _held_cpu("two-wheel", card, cpu, LEAF_F64_TOL)
+    lines.append(f"two_wheel: a {LEAF_ROLLOUT}-step roll-out in {dt:.2f} s "
+                 f"(card vs CPU {gap:.1e})")
+
+    p = utils_config.from_dict(flann_float.FloatIndexParams,
+                               {"method": "kmeans", "key_bits": 9})
+    rig = utils_config.from_dict(_Rig, {"frames": 3, "camera": {
+        "K": {"rows": 3, "cols": 3, "data": [458.0, 0, 367.0, 0, 457.0,
+                                             248.0, 0, 0, 1]}},
+        "matcher": {"method": "composite", "num_probes": 6}})
+    check(p == flann_float.FloatIndexParams(method="kmeans", key_bits=9)
+          and rig.camera.K.shape == (3, 3) and rig.camera.K[1, 2] == 248.0
+          and rig.matcher.method == "composite" and rig.frames == 3,
+          f"leaves: from_dict gave {p}, {rig}")
+    lines.append(f"config: from_dict of FloatIndexParams and of a nested "
+                 f"dataclass with a {{rows, cols, data}} matrix (PyYAML "
+                 f"{'absent' if utils_config.yaml is None else 'present'})")
+    print(f"leaves: {'; '.join(lines)} | {smi}")
+
+
 def _kernel_entry(name, source, replaces, n_launches, stats):
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
@@ -3146,6 +3709,13 @@ def main():
     phase_lsh(dev, smi)
     phase_vo_pair(dev, smi)
     phase_batched(frames, dev, smi)
+    t0 = time.perf_counter()
+    phase_gps_trajectory(dev, smi)
+    phase_nlls(dev, smi)
+    phase_float_flann(dev, smi)
+    phase_leaves(dev, smi)
+    print(f"chip_smoke: gps_trajectory, nlls, float_flann and leaves took "
+          f"{time.perf_counter() - t0:.1f} s")
     print(f"chip_smoke: every phase passed in "
           f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [

@@ -1,5 +1,6 @@
-"""PyTorch/CUDA port of libwave_tpu: the bundle-adjustment back end and the
-visual front end.
+"""PyTorch/CUDA port of libwave_tpu: the bundle-adjustment and VIO back
+ends, the visual front end, lidar matching, the trajectory back end and
+the leaf modules.
 
 The package mirrors ``libwave_tpu``'s module paths and public names
 (``libwave_tpu_torch.optim.schur`` <-> ``libwave_tpu.optim.schur``) and is

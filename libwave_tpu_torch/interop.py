@@ -18,7 +18,15 @@ never import JAX.
   VIO slice's ``VoDataset``, ``PreintegratedImu``, ``VIOProblem`` and
   ``VIOState``;
 - :func:`point_cloud_from_numpy`, :func:`se3_from_numpy`: the lidar
-  slice's ``PointCloud`` and ``SE3``.
+  slice's ``PointCloud`` and ``SE3`` (``SE3`` banks too: factor
+  measurements);
+- :func:`trajectory_state_from_jax_numpy`: ``PoseVelState``,
+  ``PoseVelBiasState`` and ``PoseVelAccBiasState``;
+- :func:`measurement_buffer_from_jax_numpy`: ``MeasurementBuffer``;
+- :func:`float_index_from_jax_numpy`: a built ``FloatIndex``;
+- :func:`pid_state_from_jax_numpy`, :func:`gimbal_state_from_jax_numpy`,
+  :func:`quadrotor_state_from_jax_numpy`: the controllers' and simulators'
+  states.
 """
 
 from __future__ import annotations
@@ -29,10 +37,15 @@ import numpy as np
 import torch
 
 from libwave_tpu_torch.containers.landmark import LandmarkBuffer
+from libwave_tpu_torch.containers.measurement import MeasurementBuffer
+from libwave_tpu_torch.controls.pid import PIDState
 from libwave_tpu_torch.geometry.se3 import SE3
+from libwave_tpu_torch.kinematics.gimbal import GimbalState
+from libwave_tpu_torch.kinematics.quadrotor import QuadrotorState
 from libwave_tpu_torch.matching.pointcloud import PointCloud
 from libwave_tpu_torch.optim import pose_graph, schur
 from libwave_tpu_torch.optim.ba import BAProblem, BAState
+from libwave_tpu_torch.optim import states
 from libwave_tpu_torch.optim.imu import PreintegratedImu
 from libwave_tpu_torch.pipelines.vio import VIOProblem, VIOState
 from libwave_tpu_torch.pipelines.visual_frontend import FrontendParams
@@ -42,6 +55,7 @@ from libwave_tpu_torch.utils.device import resolve
 from libwave_tpu_torch.vision.descriptor import BRISKParams, ORBDescriptorParams
 from libwave_tpu_torch.vision.detector import FASTParams, ORBDetectorParams
 from libwave_tpu_torch.vision.flann import FLANNParams
+from libwave_tpu_torch.vision.flann_float import FloatIndex, FloatIndexParams
 from libwave_tpu_torch.vision.matcher import MatcherParams
 from libwave_tpu_torch.vision.tracker import TrackerParams, TrackerState
 
@@ -49,8 +63,13 @@ _PARAMS = {
     cls.__name__: cls
     for cls in (FASTParams, ORBDetectorParams, BRISKParams,
                 ORBDescriptorParams, MatcherParams, TrackerParams,
-                FrontendParams, FLANNParams, VOFrontendConfig)
+                FrontendParams, FLANNParams, VOFrontendConfig,
+                FloatIndexParams)
 }
+
+_STATES = {cls.__name__: cls for cls in (
+    states.PoseVelState, states.PoseVelBiasState,
+    states.PoseVelAccBiasState)}
 
 
 def _tensor(x, device, dtype):
@@ -229,3 +248,50 @@ def se3_from_numpy(T, device=None, dtype=None) -> SE3:
     card)."""
     device = resolve(device)
     return SE3(q=_tensor(T.q, device, dtype), t=_tensor(T.t, device, dtype))
+
+
+def _fields_from(cls, obj, device, dtype, nested=None):
+    """``cls`` (a NamedTuple) from the same-named fields of ``obj``;
+    ``nested`` maps a field to the NamedTuple class it holds."""
+    nested = nested or {}
+    return cls(**{
+        f: (_fields_from(nested[f], getattr(obj, f), device, dtype)
+            if f in nested else _tensor(getattr(obj, f), device, dtype))
+        for f in cls._fields})
+
+
+def trajectory_state_from_jax_numpy(state, device=None, dtype=None):
+    """A combined trajectory state of ``optim.states`` (numpy leaves) as
+    the port's class of the same name on ``device`` (default: the card)."""
+    return _fields_from(_STATES[type(state).__name__], state,
+                        resolve(device), dtype)
+
+
+def measurement_buffer_from_jax_numpy(buf, device=None,
+                                      dtype=None) -> MeasurementBuffer:
+    """A ``MeasurementBuffer`` (numpy leaves) on ``device`` (default: the
+    card); ids, flags and the cursor keep their dtypes."""
+    return _fields_from(MeasurementBuffer, buf, resolve(device), dtype)
+
+
+def float_index_from_jax_numpy(index, device=None) -> FloatIndex:
+    """A ``FloatIndex`` built by the JAX package (numpy leaves) on
+    ``device`` (default: the card), so the port's ``float_match`` can
+    query it."""
+    return _fields_from(FloatIndex, index, resolve(device), None)
+
+
+def pid_state_from_jax_numpy(state, device=None, dtype=None) -> PIDState:
+    return _fields_from(PIDState, state, resolve(device), dtype)
+
+
+def gimbal_state_from_jax_numpy(state, device=None,
+                                dtype=None) -> GimbalState:
+    return _fields_from(GimbalState, state, resolve(device), dtype,
+                        {"pids": PIDState})
+
+
+def quadrotor_state_from_jax_numpy(state, device=None,
+                                   dtype=None) -> QuadrotorState:
+    return _fields_from(QuadrotorState, state, resolve(device), dtype,
+                        {"att_pids": PIDState, "pos_pids": PIDState})

@@ -1,7 +1,11 @@
 """Two-wheel (unicycle) robot model (port of
-``libwave_tpu.kinematics.two_wheel.two_wheel_step``): state ``[x, y,
+``libwave_tpu.kinematics.two_wheel``).
+
+The reference's ``TwoWheelRobot2DModel`` (wave_kinematics/include/wave/
+kinematics/two_wheel.hpp:15, src/two_wheel.cpp:5-11): state ``[x, y,
 theta]``, input ``[v, omega]``, Euler integration
-``pose += [v cos(theta), v sin(theta), omega] * dt``."""
+``pose += [v cos(theta), v sin(theta), omega] * dt``.
+"""
 
 from __future__ import annotations
 
@@ -17,3 +21,15 @@ def two_wheel_step(pose: torch.Tensor, u: torch.Tensor, dt) -> torch.Tensor:
         dim=-1,
     )
     return pose + delta * dt
+
+
+def simulate_two_wheel(pose0: torch.Tensor, inputs: torch.Tensor,
+                       dt) -> torch.Tensor:
+    """Roll out T steps; inputs (T, 2) -> poses (T, 3), the pose *after*
+    each step (the reference's update loop)."""
+    traj = []
+    pose = pose0
+    for u in inputs:
+        pose = two_wheel_step(pose, u, dt)
+        traj.append(pose)
+    return torch.stack(traj) if traj else pose0.new_zeros((0, 3))

@@ -1,6 +1,7 @@
 """Visual front end (port of ``libwave_tpu.vision``): FAST and ORB
 detection, BRISK and rBRIEF description, Hamming matching (exact or LSH)
-with the ratio test and RANSAC, two-view epipolar geometry, the
+with the ratio test and RANSAC, float-descriptor matching (exact L2,
+kd-forest, k-means, composite), two-view epipolar geometry, the
 fixed-capacity feature tracker, the pinhole camera and PNG image
 sequences."""
 
@@ -40,6 +41,13 @@ from libwave_tpu_torch.vision.flann import (  # noqa: F401
     LSHIndex,
     build_lsh_index,
     lsh_match,
+)
+from libwave_tpu_torch.vision.flann_float import (  # noqa: F401
+    FloatIndex,
+    FloatIndexParams,
+    build_float_index,
+    exact_l2_top2,
+    float_match,
 )
 from libwave_tpu_torch.vision.images import (  # noqa: F401
     list_image_sequence,

@@ -7,6 +7,15 @@ The lidar path has no package kernel: its card tests hold the voxel hash,
 the fixed-order segment sums, a batched ICP and the ground segmentation
 on the card against the CPU.
 
+The trajectory back end: ``solve_trajectory_gn`` (the GPS/INS smoother at
+12 states) and ``lm_solve`` (one curve fit and a vmapped batch) on the card
+under sync debug "error", each against the same solve on the CPU (cost
+traces rtol 1e-9, states and parameters 1e-9); host inputs (a list datum,
+numpy points, a numpy curve fit) landing on the card with ``device=None``;
+float ``exact`` against an f64 oracle outside near ties; two k-means builds
+with bit-equal centroids (the fixed-order segment reduce, held to its plain
+version bit for bit).
+
 Every test here needs a CUDA device and skips without one. The file
 imports no JAX, so on a machine with the card and without JAX it runs as
 
@@ -759,6 +768,17 @@ def test_segment_ground_card_vs_cpu(cuda_device):
         assert float(agree) >= 0.999
 
 
+@contextlib.contextmanager
+def _no_sync():
+    """Sync debug mode "error": a synchronizing call in the body raises."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
 @pytest.mark.cuda
 def test_identity_and_matrix_make_no_sync(cuda_device):
     """``so3.quat_identity`` and ``SE3.matrix`` wrote a host scalar into a
@@ -766,13 +786,9 @@ def test_identity_and_matrix_make_no_sync(cuda_device):
     synchronizes (sync debug mode "error" raises on one)."""
     from libwave_tpu_torch.geometry.se3 import SE3
 
-    torch.cuda.synchronize()
-    torch.cuda.set_sync_debug_mode("error")
-    try:
+    with _no_sync():
         T = SE3.identity((5,), device=cuda_device)
         M = T.matrix()
-    finally:
-        torch.cuda.set_sync_debug_mode("default")
     assert torch.equal(M.cpu(), torch.eye(4).expand(5, 4, 4))
 
 
@@ -1005,3 +1021,145 @@ def test_image_decoders_give_the_constructed_pixels(tmp_path):
                                       want, err_msg=name)
     stack = images.read_image_sequence(str(tmp_path))
     assert stack.shape == (5, H, W)
+
+
+# -------------------------------------------------------------------------
+# the trajectory back end
+# -------------------------------------------------------------------------
+
+
+def _traces(got, ref, rtol=1e-9):
+    got, ref = got.double().cpu().numpy(), ref.double().cpu().numpy()
+    np.testing.assert_allclose(got, ref, rtol=rtol,
+                               atol=1e-20 * np.abs(ref).max())
+
+
+@pytest.mark.cuda
+def test_trajectory_solve_card_vs_cpu(cuda_device):
+    from libwave_tpu_torch import bench_trajectory
+    from libwave_tpu_torch.optim import factors
+
+    truth = bench_trajectory.gps_truth(12)
+    llh = bench_trajectory.gps_fixes(truth)
+    enu = bench_trajectory.gps_fixes_enu(llh, cuda_device)
+    state, fns, ok = bench_trajectory.gps_problem(truth, enu)
+    factors.solve_trajectory_gn(state, fns, num_iters=1)
+    with _no_sync():
+        out, info = factors.solve_trajectory_gn(
+            state, fns, num_iters=bench_trajectory.GPS_ITERS)
+    state_c, fns_c, _ = bench_trajectory.gps_problem(truth, enu.cpu())
+    out_c, info_c = factors.solve_trajectory_gn(
+        state_c, fns_c, num_iters=bench_trajectory.GPS_ITERS)
+    assert bool(ok.all())
+    _traces(info["costs"], info_c["costs"])
+    for a, b in zip(out, out_c):
+        assert float((a.cpu() - b).abs().max()) <= 1e-9
+
+
+@pytest.mark.cuda
+def test_lm_solve_card_vs_cpu(cuda_device):
+    from libwave_tpu_torch import bench_trajectory
+    from libwave_tpu_torch.optim import nlls
+
+    x, y = bench_trajectory.curve_batch(64)
+    cfg = nlls.LMConfig(max_iterations=bench_trajectory.CURVE_ITERS)
+
+    def fit(X, Y, dev):
+        p0 = torch.zeros(2, dtype=torch.float64, device=dev)
+        if Y.dim() == 1:
+            return nlls.lm_solve(nlls.exp_curve_residual, p0, args=(X, Y),
+                                 config=cfg)
+        return torch.func.vmap(lambda yy: nlls.lm_solve(
+            nlls.exp_curve_residual, p0, args=(X, yy), config=cfg))(Y)
+
+    X, Y = (torch.as_tensor(a, device=cuda_device) for a in (x, y))
+    fit(X, Y[0], cuda_device)
+    for Yd, Yc in ((Y[0], torch.as_tensor(y[0])), (Y, torch.as_tensor(y))):
+        with _no_sync():
+            res = fit(X, Yd, cuda_device)
+        ref = fit(torch.as_tensor(x), Yc, "cpu")
+        _traces(res.cost_trace, ref.cost_trace)
+        assert float((res.x.cpu() - ref.x).abs().max()) <= 1e-9
+        assert torch.equal(res.converged.cpu(), ref.converged)
+
+
+@pytest.mark.cuda
+def test_host_inputs_land_on_the_card(cuda_device):
+    """With ``device=None``, a list datum, numpy points and a numpy curve
+    fit run on the card; a tensor input keeps its own device."""
+    from libwave_tpu_torch import bench_trajectory
+    from libwave_tpu_torch.geography import world_frame
+    from libwave_tpu_torch.optim import nlls
+
+    datum = list(bench_trajectory.DATUM_LLH)
+    for fn in (world_frame.enu_from_ecef_transform,
+               world_frame.ecef_from_enu_transform):
+        T = fn(datum)
+        assert T.is_cuda and T.dtype == torch.float64
+        torch.testing.assert_close(T.cpu(), fn(datum, device="cpu"),
+                                   rtol=0, atol=1e-6)
+    pts = np.random.default_rng(0).uniform(-100, 100, (8, 3))
+    llh = world_frame.llh_point_from_enu(pts, datum)
+    assert llh.is_cuda and llh.dtype == torch.float64
+    assert world_frame.enu_point_from_llh(llh, datum).is_cuda
+    assert not world_frame.enu_point_from_llh(llh.cpu(), datum).is_cuda
+    x, y = bench_trajectory.curve_batch(1)
+    res = nlls.curve_fit(lambda p, x: torch.exp(p[0] * x + p[1]), x, y[0],
+                         np.zeros(2))
+    assert res.x.is_cuda and res.cost_trace.is_cuda
+    ref = nlls.curve_fit(lambda p, x: torch.exp(p[0] * x + p[1]), x, y[0],
+                         np.zeros(2), device="cpu")
+    assert float((res.x.cpu() - ref.x).abs().max()) <= 1e-9
+    assert nlls.lm_solve(nlls.exp_curve_residual, np.zeros(2),
+                         args=(x, y[0])).x.is_cuda
+
+
+@pytest.mark.cuda
+def test_float_exact_against_f64_oracle(cuda_device):
+    from libwave_tpu_torch import bench_trajectory
+    from libwave_tpu_torch.vision import flann_float
+
+    d1, d2, src = bench_trajectory.planted_float(np.random.default_rng(42),
+                                                 n_train=4096, n_query=4096)
+    D1, D2 = (torch.as_tensor(a, device=cuda_device) for a in (d1, d2))
+    m = torch.ones(4096, dtype=torch.bool, device=cuda_device)
+    p = flann_float.FloatIndexParams(method="exact")
+    idx, valid, _ = flann_float.float_match(
+        D1, m, flann_float.build_float_index(D2, m, p), p)
+    a, b = d1.astype(np.float64), d2.astype(np.float64)
+    d = (a * a).sum(1)[:, None] + (b * b).sum(1)[None] - 2.0 * a @ b.T
+    s = np.sort(d, axis=1)
+    clear = s[:, 1] - s[:, 0] > 1e-5 * s[:, 0]
+    np.testing.assert_array_equal(idx.cpu().numpy()[clear],
+                                  d.argmin(1)[clear])
+    assert float(np.mean(idx.cpu().numpy() == src)) > 0.99
+
+
+@pytest.mark.cuda
+def test_kmeans_build_is_deterministic(cuda_device):
+    from libwave_tpu_torch import bench_trajectory
+    from libwave_tpu_torch.vision import flann_float
+
+    _, d2, _ = bench_trajectory.planted_float(np.random.default_rng(42),
+                                              n_train=16384, n_query=16)
+    D2 = torch.as_tensor(d2, device=cuda_device)
+    m = torch.ones(16384, dtype=torch.bool, device=cuda_device)
+    p = flann_float.FloatIndexParams(method="kmeans", key_bits=9)
+    before = segmm.seg_reduce_sorted.launches
+    a = flann_float.build_float_index(D2, m, p)
+    assert segmm.seg_reduce_sorted.launches - before == p.kmeans_iterations
+    held = []
+
+    def seg_reduce(vals, idx, n):
+        got = segmm.seg_reduce(vals, idx, n)
+        held.append(torch.equal(got, segmm.seg_reduce_reference(vals, idx,
+                                                                n)))
+        return got
+
+    view = mock.Mock(wraps=segmm)
+    view.seg_reduce = seg_reduce
+    with mock.patch.object(flann_float, "segmm", view):
+        b = flann_float.build_float_index(D2, m, p)
+    assert held == [True] * p.kmeans_iterations
+    assert torch.equal(a.centroids, b.centroids)
+    assert torch.equal(a.sorted_ids, b.sorted_ids)

@@ -1,10 +1,12 @@
 """The port and chip_smoke.py run without JAX (and write and read PNGs
-without PIL), and chip_smoke.py refuses to run without a CUDA device: it
+without PIL, and fill parameter dataclasses without PyYAML, whose
+``load_config`` then raises ``ConfigError("pyyaml unavailable")``), and
+chip_smoke.py refuses to run without a CUDA device: it
 exits non-zero and never prints its result.
 
 Each case runs in a fresh interpreter: one where ``jax`` (and the JAX
-package ``libwave_tpu``) cannot be imported, so any import of them from the
-port fails the test.
+package ``libwave_tpu``), PIL and ``yaml`` cannot be imported, so any
+import of them from the port fails the test.
 """
 
 import os
@@ -22,6 +24,7 @@ sys.modules["jax"] = None
 sys.modules["jaxlib"] = None
 sys.modules["libwave_tpu"] = None
 sys.modules["PIL"] = None
+sys.modules["yaml"] = None
 """
 
 IMPORT_ALL = BLOCK_JAX + """
@@ -33,7 +36,8 @@ for name in names:
     importlib.import_module(name)
 import chip_smoke
 assert not [m for m in sys.modules
-            if m.split(".")[0] in ("jax", "jaxlib", "libwave_tpu", "PIL")
+            if m.split(".")[0] in ("jax", "jaxlib", "libwave_tpu", "PIL",
+                                   "yaml")
             and sys.modules[m] is not None], "a JAX module was loaded"
 for new in ("ops.hamming", "vision.matcher", "vision.tracker",
             "containers.landmark", "pipelines.visual_frontend",
@@ -50,7 +54,12 @@ for new in ("ops.hamming", "vision.matcher", "vision.tracker",
             "matching.ground_segmentation", "pipelines.lidar_odometry",
             "datasets.kitti", "bench_lidar", "vision.images", "vision.flann",
             "vision.epipolar", "vision.detector", "vision.descriptor",
-            "pipelines.vo_frontend"):
+            "pipelines.vo_frontend", "optim.states", "optim.factors",
+            "optim.nlls", "vision.flann_float", "geography",
+            "geography.world_frame", "containers.measurement",
+            "geometry.frames", "geometry.pose_cov", "controls",
+            "controls.pid", "kinematics.pose", "kinematics.gimbal",
+            "kinematics.quadrotor", "bench_trajectory"):
     assert "libwave_tpu_torch." + new in names, new
 # cam0 PNGs are written and read back with PIL blocked
 import os, tempfile
@@ -80,6 +89,19 @@ assert torch.equal(problems[0].uv, problems[1].uv), "dataset round trip"
 out, info = ba.solve_ba_batched(problems, states,
                                 ba.BAConfig(max_iterations=2))
 assert info["costs"].shape == (2, 2) and torch.isfinite(out.lm).all()
+# parameters without PyYAML: from_dict fills them, load_config refuses
+import dataclasses
+from libwave_tpu_torch.utils import config
+from libwave_tpu_torch.vision.flann_float import FloatIndexParams
+assert config.yaml is None
+assert config.from_dict(FloatIndexParams, {"method": "kmeans"}).method \
+    == "kmeans"
+try:
+    config.load_config(FloatIndexParams, os.path.join(root, "none.yaml"))
+except config.ConfigError as e:
+    assert str(e) == "pyyaml unavailable", str(e)
+else:
+    raise AssertionError("load_config ran without PyYAML")
 print("imported", len(names), "modules")
 """
 
@@ -97,8 +119,9 @@ def test_port_and_chip_smoke_import_without_jax():
     assert proc.returncode == 0, proc.stderr
     count = int(proc.stdout.split()[1])
     # the back end's, the front end's, VIO's, EuRoC VIO's, the windowed
-    # solvers', the lidar path's and the pixels path's modules
-    assert count >= 65
+    # solvers', the lidar path's, the pixels path's and the trajectory
+    # back end's and leaves' modules
+    assert count >= 80
 
 
 def test_chip_smoke_fails_without_cuda():
