@@ -30,8 +30,9 @@ it imports no JAX. Phases, each reported on its own line:
    both timed at the headline's 13 calls. Every kernel time here
    is device time: CUDA events around the replay of a CUDA graph of many
    calls (``bench_problem.device_ms``), apart from the plain segment
-   reduce, which reads its longest run on the host and is timed on a
-   synchronized host clock (``bench_problem.wall_ms``);
+   reduce and the plain G/A, which read their longest run (largest id
+   multiplicity) on the host and are timed on a synchronized host clock
+   (``bench_problem.wall_ms``);
 4. headline: ``solve_ba`` on the full headline problem (200 poses, 10,000
    landmarks, 300 observations per pose, f32, bands) with the benchmark's
    configuration. It must take the explicit-S path with exactly 13 G/A
@@ -302,6 +303,45 @@ it imports no JAX. Phases, each reported on its own line:
     nested dataclass with a {rows, cols, data} matrix (no PyYAML on the
     card). Each held to the CPU's run: 1e-9 at f64 (1e-6 m for metres
     through ECEF), with its time.
+30. distributed: ``parallel/*`` on the one card, ranks being processes of
+    this script (``--rank``, started together after the build, each with
+    a deadline; a rank that fails or hangs fails the phase): 1 rank over
+    a real NCCL group, 2 and 4 over gloo (NCCL puts one rank on a card;
+    gloo's collectives stage CUDA tensors through the host, which
+    synchronizes). dist_ba at each: the headline problem through
+    ``partition_ba_problem`` and ``solve_ba_sharded`` (matrix-free, 10 LM,
+    20 CG): 23 reduce and 22 broadcast launches per rank per LM iteration
+    (as the single-device matrix-free solve), one held iteration's calls
+    equal to their plain versions bit for bit, the ranks' states equal bit
+    for bit, the final cost below the initial, the first iteration of the
+    same solve at f64 within rtol 1e-7 of the single-device one's, at f32
+    within 3x the single-device solve's own gap between the card and the
+    CPU measured in the same run (20 CG steps amplify any summation order
+    past 1e-3), at 1 rank no synchronizing call (sync debug mode); LM
+    iterations/s per rank and the collectives' share of an iteration. At
+    2 ranks also: a 20-pose f64 problem sharded on the card against the
+    same on the CPU (poses and landmarks within 1e-9 m, costs within rtol
+    1e-9 + atol 1e-11 of the first iteration's); ``shard_ba_problem`` +
+    ``distributed_lm_step`` on the headline problem at f64 against a local
+    LM iteration (rtol 1e-7); ``bench_vio``'s problem through
+    ``solve_vio_sharded`` (PCG; first iteration within rtol 1e-3 of the
+    single-device PCG solve, keyframes/s); the lidar phase's 49 pairs (one
+    masked pair added) through ``multi_match_sharded`` within 1.5x + 1 mm
+    of one rank's ``multi_match`` error, whether the bits are equal
+    printed. At 2 and 4: ``bench_parallel.circle_graph(1997)`` (f64;
+    every closure kind) through ``solve_pose_graph_blocks``, the final
+    cost within rtol 1e-6 of ``solve_pose_graph`` on the card,
+    ``unpartition`` giving the poses back. Numbers of ranks sharing one
+    card: no figure of scaling across cards;
+31. pp_overlap: ``bench.py``'s 8 windows (480x640 blobs: FAST-512 + BRISK
+    + top-2 match; RANSAC 2,048 hypotheses + essential + pose) serial and
+    on two CUDA streams (``pipelines.overlap``): one top-2 launch a window,
+    results equal bit for bit; s/window for each and the ratio;
+32. utils (in a child process of this script, ``--utils``, so that its
+    profiler session leaves no hooks in this one): ``utils.timing.Timer``
+    against CUDA events around 200 segment reduces (within 5% + 0.05 ms),
+    and ``utils.trace.profile_trace``'s trace naming the segment reduce
+    kernel.
 
 The line before the last is a JSON object describing each kernel (its
 launches on its main path, its largest difference from the plain version,
@@ -373,6 +413,7 @@ from libwave_tpu_torch.optim.pose_graph import (
     PriorBank,
     solve_pose_graph,
 )
+from libwave_tpu_torch.parallel.dist_ba import to_device
 from libwave_tpu_torch.datasets.euroc import load_euroc_camera_index
 from libwave_tpu_torch.pipelines import (
     LidarOdometryConfig,
@@ -781,7 +822,12 @@ def _g_a_timing(what, W, ell, hinv, calls, reps=20):
     cells = sum((phi - plo) * (c1 - c0) for (c0, c1, plo, phi) in calls)
     operands = [(W, ell, hinv, *c) for c in calls]
     ms = _time_calls(segmm.dense_g_a_window, operands, reps)
-    plain_ms = _time_calls(segmm.dense_g_a_window_reference, operands, reps)
+    # the plain version reads its largest id multiplicity on the host (it
+    # sums a cell's slots in slot order, pass by pass): a CUDA graph cannot
+    # capture it, so it is timed on a synchronized host clock
+    plain_ms = bench_problem.wall_ms(
+        lambda: [segmm.dense_g_a_window_reference(*ops) for ops in operands],
+        reps)
     out_mb = 2 * 4 * 18 * cells / 1e6
     # bytes: each slot of a call's window read once (its 18 W values and
     # its sigma entry), the window's offsets and hinv columns, G and A
@@ -797,7 +843,8 @@ def _g_a_timing(what, W, ell, hinv, calls, reps=20):
     ops = 18 * slots + 18 * 6 * cells
     bound_ms, bound_by = bound(nbytes, ops)
     print(f"{what} {len(calls)} G/A calls take {ms:.4f} "
-          f"ms (kernel) vs {plain_ms:.4f} ms (plain); {out_mb:.1f} MB of G "
+          f"ms (kernel, device time) vs {plain_ms:.4f} ms (plain, host "
+          f"clock); {out_mb:.1f} MB of G "
           f"and A written, {out_mb / ms / 1e3:.3f} TB/s (kernel); {slots} "
           f"slots in the windows; bound {bound_ms:.4f} ms ({bound_by}: "
           f"{nbytes / 1e6:.1f} MB, {ops:.3e} ops); no single PyTorch call "
@@ -1264,7 +1311,7 @@ def phase_matrix_free(problem, state, smi):
           + ", ".join(f"{k} {v:.4f}" for k, v in prof.items())
           + " | per op at 300 obs/pose (ms): "
           + ", ".join(f"{k} {v:.4f}" for k, v in ops.items()) + f" | {smi}")
-    return counts
+    return counts, costs
 
 
 def _band_calls(bands):
@@ -1374,7 +1421,8 @@ def phase_ba_dataset(dev, smi):
         torch.cuda.synchronize()
         again_s = time.perf_counter() - t0
         t0 = time.perf_counter()
-        cpu, cpu_info = ba.solve_ba(*(_move(x, "cpu") for x in (pr, init)),
+        cpu, cpu_info = ba.solve_ba(*(to_device(x, "cpu")
+                                      for x in (pr, init)),
                                     cfg)
         cpu_s = time.perf_counter() - t0
         c0, c1 = float(info["initial_cost"]), float(info["final_cost"])
@@ -1542,15 +1590,6 @@ def phase_ba_large(dev, smi):
     return counts
 
 
-def _move(x, dev):
-    """A problem or state (NamedTuples of tensors) on ``dev``."""
-    if isinstance(x, torch.Tensor):
-        return x.to(dev)
-    if isinstance(x, tuple) and hasattr(x, "_fields"):
-        return type(x)(*(_move(v, dev) for v in x))
-    return x
-
-
 def _ate(gt, est):
     t = torch.arange(gt.q.shape[0], dtype=torch.float64)
     truth = Trajectory(t, SE3(gt.q.double().cpu(), gt.p.double().cpu()))
@@ -1596,7 +1635,7 @@ def phase_vio(dev, smi):
                     hamming_table=0),
     }
     cpu = torch.device("cpu")
-    problem_cpu, init_cpu = _move(problem, cpu), _move(init, cpu)
+    problem_cpu, init_cpu = to_device(problem, cpu), to_device(init, cpu)
     out = {}
     for solver, want in wants.items():
         cfg = bench_problem.vio_config(solver)
@@ -3655,6 +3694,650 @@ def phase_leaves(dev, smi):
     print(f"leaves: {'; '.join(lines)} | {smi}")
 
 
+# ---------------------------------------------------------------------------
+# The distributed layer (parallel/*) on the one card: ranks are processes
+# of this script (``--rank``), NCCL at one rank, gloo at 2 and 4 (NCCL puts
+# one rank on a card; gloo stages CUDA tensors through the host). Times are
+# of ranks sharing one card: they say nothing of scaling across cards.
+# ---------------------------------------------------------------------------
+
+DIST_TIMEOUT = 480  # s for one group of ranks, start-up included
+DIST_GROUPS = ((1, "nccl", ("dist_ba",)),
+               (2, "gloo", ("dist_ba", "dist_ba_f64", "dist_lm_step",
+                            "dist_vio", "dist_pose_graph", "multi_match")),
+               (4, "gloo", ("dist_ba", "dist_pose_graph")))
+DIST_PG_POSES = 1997  # not divisible by 2 or 4: both pad
+DIST_PG_CFG = PoseGraphConfig(max_iterations=4, cg_max_iters=30)
+# a few hundred landmarks at f64, CG run to convergence, so the card's and
+# the CPU's sums part by rounding only
+DIST_F64_PROBLEM = dict(num_poses=20, num_landmarks=300, obs_per_pose=30)
+DIST_F64_CFG = dict(max_iterations=3, cg_max_iters=150, cg_tol=1e-12,
+                    explicit_s="never")
+# its costs card against CPU: rtol 1e-9 beside an atol of 1e-11 of the
+# first iteration's cost, the level the LM's last, converged costs reach
+# when two f64 summation orders part their states by ~1e-11 m (worst
+# measured: the last cost 1.09e-8 of itself, about 3.8e-12 of the first
+# cost; NVIDIA H100 80GB HBM3, 700 W)
+DIST_F64_RTOL = 1e-9
+DIST_F64_ATOL = 1e-11
+# the sharded headline's f32 first iteration: within this many times the
+# single-device solve's own gap between the card and the CPU, measured in
+# the same run (the summation-order floor of 20 CG steps at f32)
+DIST_F32_FLOOR_FACTOR = 3.0
+
+
+def _dist_cfg():
+    """The matrix-free headline configuration (10 LM iterations, 20 CG
+    steps), the sharded solve's only route."""
+    return dataclasses.replace(bench_problem.bench_config(LM_ITERS),
+                               explicit_s="never")
+
+
+@contextlib.contextmanager
+def _timed_collectives(acc):
+    """Time every collective of the mesh axes on the host clock, the card
+    synchronized on both sides; ``acc`` gets the seconds and the count."""
+    from libwave_tpu_torch.parallel.mesh import Axis
+
+    def timed(fn):
+        def call(self, *args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(self, *args, **kwargs)
+            torch.cuda.synchronize()
+            acc["s"] += time.perf_counter() - t0
+            acc["n"] += 1
+            return out
+        return call
+
+    with mock.patch.object(Axis, "psum", timed(Axis.psum)), \
+            mock.patch.object(Axis, "all_gather", timed(Axis.all_gather)):
+        yield
+
+
+def _to_f64(problem, state):
+    """A BA problem and state with every floating field in f64."""
+    problem = problem._replace(
+        K=problem.K.double(), uv=problem.uv.double(),
+        weight=problem.weight.double(), free_pose=problem.free_pose.double())
+    return problem, ba.BAState(*(x.double() for x in state))
+
+
+def _first_iteration_f64(problem, state, solve):
+    """The first LM iteration's cost of ``solve`` (a BA solver taking
+    problem, state and config) on the problem widened to f64."""
+    cfg = dataclasses.replace(_dist_cfg(), max_iterations=1)
+    _, info = solve(*_to_f64(problem, state), cfg)
+    return float(info["costs"][0])
+
+
+def _rank_dist_ba(mesh, dev, out):
+    from libwave_tpu_torch.parallel import partition_ba_problem, \
+        solve_ba_sharded
+
+    problem, state = bench_problem.make_problem(device=dev)
+    stacked, padded = partition_ba_problem(problem, state, mesh.size)
+    cfg = _dist_cfg()
+
+    def solve(c=cfg):
+        res = solve_ba_sharded(stacked, padded, mesh, c)
+        torch.cuda.synchronize()
+        return res
+
+    solve(dataclasses.replace(cfg, max_iterations=1))  # warm-up
+    reset_launches()
+    acc = {"s": 0.0, "n": 0}
+    t0 = time.perf_counter()
+    if mesh.backend == "nccl":
+        # NCCL makes no host sync: the counted solve runs under sync debug
+        # mode, and a second one times the collectives
+        (st, info), syncs = _sync_free(solve)
+        wall = time.perf_counter() - t0
+        out["ba_counts"] = launch_counts()
+        with _timed_collectives(acc):
+            t0 = time.perf_counter()
+            solve()
+            wall_timed = time.perf_counter() - t0
+    else:
+        # gloo synchronizes at every collective already: one solve is
+        # counted and timed
+        with _timed_collectives(acc):
+            st, info = solve()
+        wall = wall_timed = time.perf_counter() - t0
+        syncs = {}
+        out["ba_counts"] = launch_counts()
+    stats = {}
+    with _held_to_plain(f"dist_ba at {mesh.size} ranks", stats):
+        solve(dataclasses.replace(cfg, max_iterations=1))
+    out["ba64_first"] = _first_iteration_f64(
+        problem, state, lambda p, s, c: solve_ba_sharded(
+            *partition_ba_problem(p, s, mesh.size), mesh, c))
+    out.update(
+        ba_costs=info["costs"].cpu().numpy(),
+        ba_initial=float(info["initial_cost"]),
+        ba_q=st.q.cpu().numpy(), ba_p=st.p.cpu().numpy(),
+        ba_lm=st.lm.cpu().numpy(), ba_rate=LM_ITERS / wall,
+        ba_syncs=dict(syncs), ba_collective_s=acc["s"],
+        ba_collectives=acc["n"], ba_timed_wall=wall_timed,
+        ba_held={k: (v["calls"], v["max_abs_err"]) for k, v in stats.items()})
+
+
+def _rank_dist_ba_f64(mesh, dev, out):
+    """A small f64 problem through the sharded solve on the card and on
+    the CPU (a CPU mesh over the same gloo group)."""
+    from libwave_tpu_torch.parallel import make_mesh, partition_ba_problem, \
+        solve_ba_sharded
+
+    cfg = dataclasses.replace(bench_problem.bench_config(), **DIST_F64_CFG)
+    cpu_mesh = make_mesh(device="cpu")
+    res = []
+    for m in (mesh, cpu_mesh):
+        problem, state = _to_f64(*bench_problem.make_problem(
+            **DIST_F64_PROBLEM, device=m.device))
+        st, info = solve_ba_sharded(
+            *partition_ba_problem(problem, state, m.size), m, cfg)
+        res.append((info["costs"].cpu().numpy(), st.p.cpu().numpy(),
+                    st.lm.cpu().numpy()))
+    out["f64_card"], out["f64_cpu"] = res
+
+
+def _rank_dist_lm_step(mesh, dev, out):
+    from libwave_tpu_torch.parallel import distributed_lm_step, \
+        shard_ba_problem
+
+    problem, state = _to_f64(*bench_problem.make_problem(device=dev))
+    cfg = _dist_cfg()
+    sharded, st = shard_ba_problem(problem, state, mesh)
+    _, cost = distributed_lm_step(sharded, st, cfg)
+    out["step_cost"] = float(cost)
+    if mesh.axis(mesh.axis_names).index == 0:
+        lam = torch.tensor(1e-4, dtype=torch.float64, device=dev)
+        carry = (state, lam, ba.ba_cost(problem, state),
+                 torch.zeros((), dtype=torch.bool, device=dev))
+        (_, _, local, _), _ = ba._lm_iteration(problem, cfg, carry)
+        out["step_local"] = float(local)
+
+
+def _rank_dist_vio(mesh, dev, out):
+    from libwave_tpu_torch.parallel import partition_vio_problem, \
+        solve_vio_sharded
+
+    problem, gt, init = bench_problem.make_vio_problem(device=dev)
+    cfg = bench_problem.vio_config("pcg")
+    stacked, padded = partition_vio_problem(problem, init, mesh.size)
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    st, info = solve_vio_sharded(stacked, padded, mesh, cfg)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    N = gt.q.shape[0]
+    out.update(vio_counts=launch_counts(),
+               vio_costs=info["costs"].cpu().numpy(),
+               vio_initial=float(info["initial_cost"]),
+               vio_p=st.p.cpu().numpy(), vio_rate=N / wall, vio_N=N,
+               vio_ate=_ate(gt, st._replace(q=st.q[:N], p=st.p[:N])),
+               vio_ate0=_ate(gt, init))
+    if mesh.axis("dp").index == 0:
+        _, ref = vio.solve_vio(problem, init, cfg)
+        out["vio_single"] = ref["costs"].cpu().numpy()
+
+
+def _rank_dist_pose_graph(mesh, dev, out):
+    from libwave_tpu_torch.bench_parallel import circle_graph
+    from libwave_tpu_torch.parallel import flatten_mesh, \
+        partition_pose_graph, solve_pose_graph_blocks, unpartition
+
+    _, _, q0, p0, between = circle_graph(DIST_PG_POSES, device=dev)
+    g = partition_pose_graph(q0, p0, between, None, mesh.size)
+    back = unpartition(g.q, g.p, DIST_PG_POSES)
+    sp = flatten_mesh(mesh, "sp")
+    solve_pose_graph_blocks(g, sp, DIST_PG_CFG._replace(
+        max_iterations=1, cg_max_iters=2))  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    qb, pb, info = solve_pose_graph_blocks(g, sp, DIST_PG_CFG)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    q, p = unpartition(qb, pb, DIST_PG_POSES)
+    out.update(pg_trace=info["cost_trace"].cpu().numpy(),
+               pg_p=p.cpu().numpy(), pg_q=q.cpu().numpy(), pg_wall=wall,
+               pg_back=bool(torch.equal(back[0], q0)
+                            and torch.equal(back[1], p0)),
+               pg_seps=int(g.sep_mask.sum()))
+    if sp.axis("sp").index == 0:
+        _, p_ref, ref = solve_pose_graph(q0, p0, between, cfg=DIST_PG_CFG)
+        out.update(pg_single=ref["cost_trace"].cpu().numpy(),
+                   pg_single_p=p_ref.cpu().numpy())
+
+
+def _pair_truth(q, p):
+    """Each consecutive scan pair's true transform (ref scan t into target
+    scan t+1 coordinates: the inverse of T_t^-1 T_{t+1}), f64 on the CPU."""
+    T = SE3(q=torch.as_tensor(q), t=torch.as_tensor(p))
+    a = SE3(q=T.q[:-1], t=T.t[:-1])
+    b = SE3(q=T.q[1:], t=T.t[1:])
+    return a.inverse().compose(b).inverse()
+
+
+def _rank_multi_match(mesh, dev, out):
+    from libwave_tpu_torch.matching.multi import multi_match, \
+        multi_match_sharded
+
+    pts, mask, q, p = bench_lidar.scan_sequence(ODOMETRY_T, 4096)
+    _lidar_data("multi_match", "sequence", pts, mask)
+    pts = torch.as_tensor(pts.astype(np.float32))
+    mask = torch.as_tensor(mask)
+    pairs = ODOMETRY_T - 1
+    pad = (-pairs) % mesh.size
+
+    def batch(x, fill):
+        return torch.cat([x, fill.expand((pad,) + x.shape[1:])])
+
+    refs = PointCloud(batch(pts[:-1], pts[:1]),
+                      batch(mask[:-1], torch.zeros_like(mask[:1])))
+    tgts = PointCloud(batch(pts[1:], pts[:1]),
+                      batch(mask[1:], torch.zeros_like(mask[:1])))
+    t0 = time.perf_counter()
+    res = multi_match_sharded(refs, tgts, mesh, bench_lidar.ODOMETRY_ICP)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    truth = _pair_truth(q, p)
+    err = (res.transform.t[:pairs].double().cpu() - truth.t).norm(dim=-1)
+    out.update(mm_err=err.numpy(), mm_wall=wall, mm_pad=pad,
+               mm_t=res.transform.t[:pairs].cpu().numpy(),
+               mm_converged=res.converged[:pairs].cpu().numpy())
+    if mesh.axis("dp").index == 0:
+        one = multi_match(PointCloud(pts[:-1].to(dev), mask[:-1].to(dev)),
+                          PointCloud(pts[1:].to(dev), mask[1:].to(dev)),
+                          bench_lidar.ODOMETRY_ICP)
+        out.update(mm_single_t=one.transform.t.cpu().numpy(),
+                   mm_single_err=(one.transform.t.double().cpu()
+                                  - truth.t).norm(dim=-1).numpy())
+
+
+RANK_CASES = {"dist_ba": _rank_dist_ba, "dist_ba_f64": _rank_dist_ba_f64,
+              "dist_lm_step": _rank_dist_lm_step, "dist_vio": _rank_dist_vio,
+              "dist_pose_graph": _rank_dist_pose_graph,
+              "multi_match": _rank_multi_match}
+
+
+def rank_main(argv):
+    """One rank of a distributed phase: ``--rank R --world W --backend B
+    --store FILE --out DIR --cases a,b``. Joins the group through the file
+    store, runs the cases on its card and pickles its readings to
+    ``DIR/rank{R}.pkl``."""
+    import pickle
+
+    from libwave_tpu_torch.parallel import (
+        MeshConfig,
+        MultiHostConfig,
+        initialize_multihost,
+        make_mesh,
+    )
+
+    args = dict(zip(argv[0::2], argv[1::2]))
+    rank, world = int(args["--rank"]), int(args["--world"])
+    check(torch.cuda.is_available(), "no CUDA device for this rank")
+    initialize_multihost(MultiHostConfig(
+        coordinator_address=f"file://{args['--store']}",
+        num_processes=world, process_id=rank), backend=args["--backend"])
+    mesh = make_mesh(MeshConfig(dp=world))
+    dev = mesh.device
+    # the first collective builds the communicator: not inside a solve
+    mesh.axis("dp").psum(torch.ones(1, device=dev))
+    torch.cuda.synchronize()
+    out = {"backend": mesh.backend, "device": str(dev)}
+    for case in args["--cases"].split(","):
+        t0 = time.perf_counter()
+        RANK_CASES[case](mesh, dev, out)
+        out[f"{case}_s"] = time.perf_counter() - t0
+    with open(Path(args["--out"]) / f"rank{rank}.pkl", "wb") as fh:
+        pickle.dump(out, fh)
+    torch.distributed.destroy_process_group()
+
+
+def _run_ranks(world, backend, cases, tmp):
+    """Spawn ``world`` ranks of this script; every one must exit 0 within
+    DIST_TIMEOUT (else all are killed and the phase fails). Returns their
+    readings, in rank order, and the wall seconds."""
+    import pickle
+
+    tmp = Path(tmp)
+    env = dict(os.environ, PYTHONPATH=str(HERE), OMP_NUM_THREADS="1")
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, str(HERE / "chip_smoke.py"), "--rank", str(r),
+         "--world", str(world), "--backend", backend, "--store",
+         str(tmp / "store"), "--out", str(tmp), "--cases", ",".join(cases)],
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(world)]
+    logs = []
+    try:
+        deadline = time.monotonic() + DIST_TIMEOUT
+        for p in procs:
+            logs.append(p.communicate(
+                timeout=max(1.0, deadline - time.monotonic()))[0])
+    except subprocess.TimeoutExpired:
+        for p in procs:
+            p.kill()
+            p.communicate()
+        raise SmokeFailure(f"{world} {backend} ranks ({cases}) did not "
+                           f"finish in {DIST_TIMEOUT} s")
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        check(p.returncode == 0, f"{world} {backend} ranks: rank {r} exited "
+              f"{p.returncode}:\n{log[-4000:]}")
+    outs = []
+    for r in range(world):
+        with open(tmp / f"rank{r}.pkl", "rb") as fh:
+            outs.append(pickle.load(fh))
+    return outs, time.perf_counter() - t0
+
+
+def _same_on_ranks(what, outs, keys):
+    for k in keys:
+        for r, o in enumerate(outs[1:], 1):
+            check(np.array_equal(o[k], outs[0][k]),
+                  f"{what}: rank {r}'s {k} differs from rank 0's")
+
+
+def _check_dist_ba(outs, world, refs, smi):
+    r0 = outs[0]
+    cg = _dist_cfg().cg_max_iters
+    want = dict(segmm_g_a=0, seg_reduce=(3 + cg) * LM_ITERS,
+                seg_broadcast=(2 + cg) * LM_ITERS, hamming_top2=0,
+                hamming_table=0)
+    for r, o in enumerate(outs):
+        check(o["ba_counts"] == want, f"dist_ba {world}: rank {r} launched "
+              f"{o['ba_counts']}, expected {want}")
+        held = {k: v[0] for k, v in o["ba_held"].items()}
+        check(held == {"seg_reduce": 3 + cg, "seg_broadcast": 2 + cg},
+              f"dist_ba {world}: rank {r} held {held} calls of one "
+              f"iteration to the plain versions")
+    _same_on_ranks(f"dist_ba {world}", outs, ("ba_q", "ba_p", "ba_lm",
+                                              "ba_costs"))
+    costs = r0["ba_costs"].astype(np.float64)
+    check(np.isfinite(costs).all() and costs[-1] < r0["ba_initial"],
+          f"dist_ba {world}: costs {r0['ba_initial']} -> {costs}")
+    # f32: splitting a landmark's sum over ranks rounds it otherwise, and 20
+    # CG steps amplify that as they amplify any summation order (the
+    # single-device solve on the card and on the CPU part by as much). So
+    # the sharded first iteration is held to the single-device one within
+    # DIST_F32_FLOOR_FACTOR times that floor, and at f64 to rtol 1e-7, the
+    # JAX package's own bound for a distributed against a local LM
+    # iteration at f64 (tests/test_parallel.py:80)
+    rel = abs(costs[0] - refs["f32"]) / abs(refs["f32"])
+    limit = DIST_F32_FLOOR_FACTOR * refs["floor"]
+    check(rel <= limit, f"dist_ba {world}: first iteration at f32 "
+          f"{costs[0]!r} vs the single-device solve's {refs['f32']!r}: "
+          f"{rel:.3e} apart, limit {limit:.3e} ({DIST_F32_FLOOR_FACTOR}x "
+          f"that solve's card-vs-CPU gap {refs['floor']:.3e})")
+    rel64 = abs(r0["ba64_first"] - refs["f64"]) / abs(refs["f64"])
+    check(rel64 <= 1e-7, f"dist_ba {world}: first iteration at f64 "
+          f"{r0['ba64_first']!r} vs the single-device solve's "
+          f"{refs['f64']!r} (rtol 1e-7)")
+    syncs = r0["ba_syncs"]
+    if r0["backend"] == "nccl":
+        check(not syncs, f"dist_ba {world} (NCCL): synchronizing calls "
+              f"inside solve_ba_sharded: {syncs}")
+    share = r0["ba_collective_s"] / r0["ba_timed_wall"]
+    print(f"dist_ba: {world} rank(s), {r0['backend']} on one card: "
+          f"headline problem (200 poses, 10,000 landmarks, f32, matrix-free, "
+          f"{LM_ITERS} LM, {cg} CG) in {world} pose blocks; per rank per LM "
+          f"iteration {3 + cg} reduce and {2 + cg} broadcast launches (as "
+          f"the single-device matrix-free solve), one iteration's calls "
+          f"held to the plain versions bit for bit; the ranks' states equal "
+          f"bit for bit; cost {r0['ba_initial']:.6e} -> {costs[-1]:.6e}, "
+          f"first iteration {rel:.3e} from the single-device solve's (limit "
+          f"{limit:.3e}: {DIST_F32_FLOOR_FACTOR}x that solve's gap between "
+          f"the card and the CPU, {refs['floor']:.3e}); at "
+          f"f64 {rel64:.3e} (rtol 1e-7); {r0['ba_rate']:.4f} LM iterations/s "
+          f"per rank; "
+          f"{r0['ba_collectives'] // LM_ITERS} collectives an iteration "
+          f"take {share:.4f} of it (host clock, card synchronized around "
+          f"each); synchronizing calls: "
+          + ("none (sync debug mode)" if r0["backend"] == "nccl" else
+             "not checked (gloo stages each collective through the host, "
+             "which synchronizes)") + f" | {smi}")
+    return r0["ba_rate"]
+
+
+def _check_group2(outs, smi):
+    r0 = outs[0]
+    card, cpu = r0["f64_card"], r0["f64_cpu"]
+    # the costs fall ~3,000-fold to a minimum where the last bits of the
+    # states decide them: each is held to rtol DIST_F64_RTOL beside an atol
+    # of DIST_F64_ATOL of the first iteration's cost; the states to 1e-9 m
+    diff = np.abs(card[0] - cpu[0])
+    limits = DIST_F64_RTOL * np.abs(cpu[0]) + DIST_F64_ATOL * abs(cpu[0][0])
+    crel = float(np.max(diff / np.abs(cpu[0])))
+    cabs = float(np.max(diff)) / abs(cpu[0][0])
+    pgap = float(np.max(np.abs(card[1] - cpu[1])))
+    lgap = float(np.max(np.abs(card[2] - cpu[2])))
+    check(bool(np.all(diff <= limits)) and pgap <= 1e-9 and lgap <= 1e-9,
+          f"dist_ba f64: card vs CPU costs {diff.tolist()} against "
+          f"{limits.tolist()} (rtol {DIST_F64_RTOL}, atol {DIST_F64_ATOL} "
+          f"of the first cost), poses {pgap:.3e} m, landmarks {lgap:.3e} m "
+          f"(limit 1e-9)")
+    print(f"dist_ba f64: 2 gloo ranks, {DIST_F64_PROBLEM} f64, CG to "
+          f"convergence: the card's sharded solve against the same on the "
+          f"CPU: costs at most {crel:.3e} of themselves and {cabs:.3e} of "
+          f"the first iteration's (rtol {DIST_F64_RTOL} + atol "
+          f"{DIST_F64_ATOL} of the first cost), poses {pgap:.3e} m, "
+          f"landmarks {lgap:.3e} m (limit 1e-9): "
+          f"{' '.join(f'{c:.12e}' for c in card[0])}")
+
+    _same_on_ranks("dist_lm_step", outs, ("step_cost",))
+    rel = abs(r0["step_cost"] - r0["step_local"]) / abs(r0["step_local"])
+    check(rel <= 1e-7, f"dist_lm_step: {r0['step_cost']} vs a local LM "
+          f"iteration's {r0['step_local']}")
+    print(f"dist_lm_step: 2 gloo ranks, the headline problem at f64 as a "
+          f"flat bank split in two: one LM iteration costs "
+          f"{r0['step_cost']:.12e}, a local iteration {r0['step_local']:.12e} "
+          f"(rel {rel:.3e}, rtol 1e-7)")
+
+    _same_on_ranks("dist_vio", outs, ("vio_costs", "vio_p"))
+    cfg = bench_problem.vio_config("pcg")
+    it, cg = cfg.max_iterations, cfg.cg_max_iters
+    want = dict(segmm_g_a=0, seg_reduce=(3 + cg) * it,
+                seg_broadcast=(2 + cg) * it, hamming_top2=0, hamming_table=0)
+    for r, o in enumerate(outs):
+        check(o["vio_counts"] == want, f"dist_vio: rank {r} launched "
+              f"{o['vio_counts']}, expected {want}")
+    costs, single = r0["vio_costs"], r0["vio_single"]
+    rel = abs(costs[0] - single[0]) / abs(single[0])
+    check(rel <= 1e-3 and np.isfinite(costs).all()
+          and costs[-1] < r0["vio_initial"],
+          f"dist_vio: costs {r0['vio_initial']} -> {costs}; single-device "
+          f"first iteration {single[0]}")
+    print(f"dist_vio: 2 gloo ranks, bench_vio's problem ({r0['vio_N']} "
+          f"keyframes, f32, PCG, {it} LM, {cg} CG) in 2 keyframe blocks, "
+          f"{3 + cg} reduce and {2 + cg} broadcast launches per rank per LM "
+          f"iteration: cost "
+          f"{r0['vio_initial']:.6e} -> {costs[-1]:.6e}, first iteration "
+          f"{rel:.3e} from the single-device PCG solve (rtol 1e-3); ATE "
+          f"{r0['vio_ate0']:.6f} -> {r0['vio_ate']:.6f} m; "
+          f"{r0['vio_rate']:.3f} keyframes/s per rank; ranks equal bit for "
+          f"bit | {smi}")
+
+    err, single_err = r0["mm_err"], r0["mm_single_err"]
+    bound = 1.5 * float(single_err.max()) + 1e-3
+    check(bool(r0["mm_converged"].all()) and float(err.max()) <= bound,
+          f"multi_match: worst pair error {err.max()} m, bound {bound} "
+          f"(one rank's {single_err.max()})")
+    _same_on_ranks("multi_match", outs, ("mm_t",))
+    same = np.array_equal(r0["mm_t"], r0["mm_single_t"])
+    pairs = len(err)
+    print(f"multi_match: 2 gloo ranks, the lidar phase's {pairs} pairs of "
+          f"4,096 points (f32, full-resolution ICP; {r0['mm_pad']} masked "
+          f"pair to an even batch), {pairs // 2 + r0['mm_pad']} a rank: worst "
+          f"translation error {err.max():.6e} m against one rank's "
+          f"{single_err.max():.6e} (bound 1.5x + 1 mm), all converged; the "
+          f"bits {'equal' if same else 'differ from'} one rank's (gap "
+          f"{np.abs(r0['mm_t'] - r0['mm_single_t']).max():.3e} m); "
+          f"{pairs / r0['mm_wall']:.3f} pairs/s | {smi}")
+
+
+def _check_pose_graph(outs, world, smi):
+    r0 = outs[0]
+    _same_on_ranks(f"dist_pose_graph {world}", outs, ("pg_trace", "pg_p"))
+    trace, single = r0["pg_trace"], r0["pg_single"]
+    rel = abs(trace[-1] - single[-1]) / abs(single[-1])
+    check(rel <= 1e-6 and r0["pg_back"] and trace[-1] < trace[0],
+          f"dist_pose_graph {world}: final cost {trace[-1]} vs single-device "
+          f"{single[-1]} (rtol 1e-6); unpartition gives the poses back: "
+          f"{r0['pg_back']}")
+    gap = float(np.abs(r0["pg_p"] - r0["pg_single_p"]).max())
+    print(f"dist_pose_graph: {world} gloo ranks, the circle of "
+          f"{DIST_PG_POSES} poses (f64; closures onto the previous block, "
+          f"{r0['pg_seps']} separators, the wrap, both directions; "
+          f"{DIST_PG_CFG.max_iterations} GN, {DIST_PG_CFG.cg_max_iters} CG): "
+          f"final cost {trace[-1]:.9e} against the single-device "
+          f"solve's {single[-1]:.9e} (rel {rel:.3e}, rtol 1e-6), positions "
+          f"{gap:.3e} m apart; unpartition gives the poses back; "
+          f"{r0['pg_wall']:.3f} s a solve | {smi}")
+
+
+def phase_distributed(mf_costs, dev, smi):
+    """The distributed phases: dist_ba at 1 (NCCL), 2 and 4 ranks (gloo);
+    at 2 ranks also dist_ba f64, dist_lm_step, dist_vio, dist_pose_graph
+    and multi_match; at 4 dist_pose_graph. ``mf_costs``: the single-device
+    matrix-free headline solve's costs on the card."""
+    problem, state = bench_problem.make_problem(device=dev)
+    cpu_dev = torch.device("cpu")
+    _, cpu = ba.solve_ba(to_device(problem, cpu_dev),
+                         to_device(state, cpu_dev),
+                         _dist_cfg())
+    refs = {"f32": mf_costs[0],
+            "floor": abs(float(cpu["costs"][0]) - mf_costs[0]) / mf_costs[0],
+            "f64": _first_iteration_f64(problem, state, ba.solve_ba)}
+    del problem, state
+    torch.cuda.empty_cache()
+    rates = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for world, backend, cases in DIST_GROUPS:
+            sub = Path(tmp) / f"r{world}"
+            sub.mkdir()
+            outs, wall = _run_ranks(world, backend, cases, sub)
+            check(all(o["backend"] == backend for o in outs),
+                  f"{world} ranks ran {[o['backend'] for o in outs]}")
+            times = ", ".join(f"{c} {outs[0][f'{c}_s']:.1f} s" for c in cases)
+            print(f"distributed: {world} rank(s) over {backend} on "
+                  f"{outs[0]['device']} in {wall:.1f} s ({times})")
+            rates[world] = _check_dist_ba(outs, world, refs, smi)
+            if world == 2:
+                _check_group2(outs, smi)
+            if "dist_pose_graph" in cases:
+                _check_pose_graph(outs, world, smi)
+    print("dist_ba: LM iterations/s per rank, ranks sharing one card: "
+          + ", ".join(f"{w} rank(s) {r:.4f}" for w, r in rates.items())
+          + f" (one card: no figure of scaling across cards) | {smi}")
+
+
+def phase_pp_overlap(dev, smi):
+    """bench.py's 8 pp windows (FAST + BRISK + top-2 match; RANSAC +
+    essential + pose), serial on one stream against two streams."""
+    from libwave_tpu_torch.bench_parallel import pp_frames, pp_stages
+    from libwave_tpu_torch.pipelines.overlap import pipelined_windows, \
+        serial_windows
+
+    frames = pp_frames(8, device=dev)
+    fe, be = pp_stages()
+    be(fe(frames[0]))  # warm-up
+    torch.cuda.synchronize()
+    fs, bs = torch.cuda.Stream(), torch.cuda.Stream()
+    runs, walls = {}, {"serial": [], "streams": []}
+    for which in ("serial", "streams", "streams", "serial"):
+        hamming.hamming_top2.launches = 0
+        t0 = time.perf_counter()
+        if which == "serial":
+            out = serial_windows(fe, be, frames)
+        else:
+            out = pipelined_windows(fe, be, frames, frontend_stream=fs,
+                                    backend_stream=bs)
+        torch.cuda.synchronize()
+        walls[which].append(time.perf_counter() - t0)
+        check(hamming.hamming_top2.launches == len(frames),
+              f"pp_overlap {which}: {hamming.hamming_top2.launches} top-2 "
+              f"launches for {len(frames)} windows")
+        runs.setdefault(which, out)
+        check(all(torch.equal(a, b) for a, b in zip(out, runs[which])),
+              f"pp_overlap {which}: two runs differ")
+    check(all(torch.equal(a, b) for a, b in zip(runs["serial"],
+                                                  runs["streams"])),
+          "pp_overlap: the two-stream results differ from the serial ones")
+    s, p = (float(np.median(walls[k])) / len(frames)
+            for k in ("serial", "streams"))
+    print(f"pp_overlap: {len(frames)} windows of 480x640 (FAST-512 + BRISK + "
+          f"top-2 match, one top-2 launch a window; RANSAC 2,048 hypotheses "
+          f"+ essential + pose): {s:.4f} s/window serial, {p:.4f} s/window "
+          f"on two streams (ratio {s / p:.3f}); results equal bit for bit | "
+          f"{smi}")
+
+
+def phase_utils(smi):
+    """Runs :func:`utils_main` in a child process of this script
+    (``--utils``): ``torch.profiler`` leaves its hooks in the process that
+    used it, which slows that process's later launches (see
+    :func:`_launches_per_iteration`): with this phase first in this
+    process the matrix-free headline solve ran 14.2-14.4 LM iterations/s
+    against 17.8-21.7 without it (NVIDIA H100 80GB HBM3, 700 W)."""
+    proc = subprocess.run(
+        [sys.executable, str(HERE / "chip_smoke.py"), "--utils", smi],
+        env=dict(os.environ, PYTHONPATH=str(HERE)), capture_output=True,
+        text=True, timeout=600)
+    check(proc.returncode == 0, f"utils: the child exited {proc.returncode}"
+          f":\n{(proc.stdout + proc.stderr)[-4000:]}")
+    print(proc.stdout.strip())
+
+
+def utils_main(smi):
+    """utils.timing.Timer against CUDA events around the segment reduce,
+    and utils.trace.profile_trace naming it (the kernels are built: the
+    parent's build phase left them in ``_build/``)."""
+    from libwave_tpu_torch.utils.timing import Timer
+    from libwave_tpu_torch.utils.trace import annotate, profile_trace
+
+    check(torch.cuda.is_available(), "utils: no CUDA device")
+    dev = torch.device("cuda:0")
+    g = torch.Generator(device=dev).manual_seed(0)
+    K, M = 480_000, 10_000
+    vals = torch.randn((6, K), generator=g, device=dev)
+    ell = segmm.sorted_layout(torch.randint(0, M, (K,), generator=g,
+                                            device=dev), M)
+    calls = 200
+    for _ in range(3):
+        segmm.seg_reduce_sorted(vals, *ell)
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    with Timer() as t:
+        start.record()
+        for _ in range(calls):
+            out = segmm.seg_reduce_sorted(vals, *ell)
+        end.record()
+        t.block_on(out)
+    ev_ms = start.elapsed_time(end)
+    t_ms = t.elapsed * 1e3
+    check(abs(t_ms - ev_ms) <= 0.05 * ev_ms + 0.05,
+          f"utils: Timer {t_ms:.4f} ms vs CUDA events {ev_ms:.4f} ms")
+    with tempfile.TemporaryDirectory() as tmp:
+        with profile_trace(tmp) as prof:
+            with annotate("seg_reduce_calls"):
+                for _ in range(5):
+                    segmm.seg_reduce_sorted(vals, *ell)
+            torch.cuda.synchronize()
+        text = (Path(tmp) / "trace.json").read_text()
+    names = {e.key for e in prof.key_averages()}
+    check("seg_reduce_sorted_kernel" in text,
+          "utils: the profiler trace does not name the segment reduce kernel")
+    check("seg_reduce_calls" in names,
+          "utils: the profiler does not list the annotated region")
+    print(f"utils: Timer {t_ms:.4f} ms vs CUDA events {ev_ms:.4f} ms over "
+          f"{calls} segment reduces (6 x 480,000 -> 10,000; limit 5% + 0.05 "
+          f"ms); profile_trace's trace.json names seg_reduce_sorted_kernel "
+          f"and the annotated region | {smi}")
+
+
 def _kernel_entry(name, source, replaces, n_launches, stats):
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
@@ -3679,7 +4362,7 @@ def main():
     ga_launches = phase_headline(problem, state, cfg, smi)
     phase_small_reference(dev)
     seg = phase_seg(problem, dev, smi)
-    mf_counts = phase_matrix_free(problem, state, smi)
+    mf_counts, mf_costs = phase_matrix_free(problem, state, smi)
     del problem, state
     t0 = time.perf_counter()
     phase_ba_dataset(dev, smi)
@@ -3716,6 +4399,13 @@ def main():
     phase_leaves(dev, smi)
     print(f"chip_smoke: gps_trajectory, nlls, float_flann and leaves took "
           f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    phase_distributed(mf_costs, dev, smi)
+    phase_pp_overlap(dev, smi)
+    phase_utils(smi)
+    print(f"chip_smoke: the distributed phases, pp_overlap and utils took "
+          f"{time.perf_counter() - t0:.1f} s")
     print(f"chip_smoke: every phase passed in "
           f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [
@@ -3736,7 +4426,12 @@ def main():
 
 if __name__ == "__main__":
     try:
-        main()
+        if sys.argv[1:2] == ["--rank"]:
+            rank_main(sys.argv[1:])
+        elif sys.argv[1:2] == ["--utils"]:
+            utils_main(sys.argv[2])
+        else:
+            main()
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         sys.exit(1)

@@ -1,6 +1,7 @@
 """PyTorch/CUDA port of libwave_tpu: the bundle-adjustment and VIO back
-ends, the visual front end, lidar matching, the trajectory back end and
-the leaf modules.
+ends, the visual front end, lidar matching, the trajectory back end, the
+distributed solvers (``parallel``, over ``torch.distributed``) and the
+leaf modules.
 
 The package mirrors ``libwave_tpu``'s module paths and public names
 (``libwave_tpu_torch.optim.schur`` <-> ``libwave_tpu.optim.schur``) and is

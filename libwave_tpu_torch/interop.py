@@ -26,7 +26,12 @@ never import JAX.
 - :func:`float_index_from_jax_numpy`: a built ``FloatIndex``;
 - :func:`pid_state_from_jax_numpy`, :func:`gimbal_state_from_jax_numpy`,
   :func:`quadrotor_state_from_jax_numpy`: the controllers' and simulators'
-  states.
+  states;
+- :func:`stacked_ba_from_jax_numpy`, :func:`stacked_vio_from_jax_numpy`,
+  :func:`block_pose_graph_from_jax_numpy`: the partitioned problems of the
+  distributed solvers (``parallel.partition_ba_problem``,
+  ``partition_vio_problem``, ``partition_pose_graph``), each block with
+  the port's own landmark layout.
 """
 
 from __future__ import annotations
@@ -295,3 +300,49 @@ def quadrotor_state_from_jax_numpy(state, device=None,
                                    dtype=None) -> QuadrotorState:
     return _fields_from(QuadrotorState, state, resolve(device), dtype,
                         {"att_pids": PIDState, "pos_pids": PIDState})
+
+
+def _stacked_layout(lm_idx, weight, num_landmarks, device):
+    """The port's layouts of a stacked bank (n_blocks, Kb), one per block,
+    stacked: the real slots (weight > 0) in stable landmark order, as
+    ``parallel.dist_ba.partition_ell_bank`` builds them."""
+    lm_idx, weight = np.asarray(lm_idx), np.asarray(weight)
+    blocks = [schur.build_ell_layout(lm_idx[b], num_landmarks,
+                                     valid=weight[b] > 0, device=device)
+              for b in range(lm_idx.shape[0])]
+    return schur.EllLayout(torch.stack([b.sigma for b in blocks]),
+                           torch.stack([b.offsets for b in blocks]))
+
+
+def stacked_ba_from_jax_numpy(stacked, state, device=None, dtype=None):
+    """The JAX package's ``partition_ba_problem`` output (numpy leaves) as
+    the port's ``(stacked BAProblem, padded BAState)`` on ``device``
+    (default: the card)."""
+    device = resolve(device)
+    problem, st = from_jax_numpy(stacked._replace(ell=None), state, device,
+                                 dtype)
+    ell = _stacked_layout(stacked.lm_idx, stacked.weight, st.lm.shape[0],
+                          device)
+    return problem._replace(ell=ell), st
+
+
+def stacked_vio_from_jax_numpy(stacked, num_landmarks: int, device=None,
+                               dtype=None) -> VIOProblem:
+    """The JAX package's ``partition_vio_problem`` problem (numpy leaves)
+    as the port's stacked ``VIOProblem`` on ``device`` (default: the
+    card); ``num_landmarks`` sizes the layouts."""
+    device = resolve(device)
+    problem = vio_problem_from_jax_numpy(stacked._replace(ell=None), device,
+                                         dtype)
+    return problem._replace(ell=_stacked_layout(
+        stacked.lm_idx, stacked.obs_weight, num_landmarks, device))
+
+
+def block_pose_graph_from_jax_numpy(g, device=None, dtype=None):
+    """The JAX package's ``BlockPoseGraph`` (numpy leaves) as the port's,
+    on ``device`` (default: the card)."""
+    from libwave_tpu_torch.parallel.dist_pose_graph import BlockPoseGraph
+
+    device = resolve(device)
+    return BlockPoseGraph(*(_tensor(getattr(g, f), device, dtype)
+                            for f in BlockPoseGraph._fields))

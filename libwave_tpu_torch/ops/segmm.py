@@ -77,7 +77,14 @@ def dense_g_a_reference(W: torch.Tensor, lm_slot: torch.Tensor,
     """Plain PyTorch G/A build: ``W`` (Dj*3, N, Pmax), ``lm_slot`` (N, Pmax)
     landmark ids, ``hinv`` (6, M) symmetric inverse landmark blocks ->
     ``(G, A)`` each (N, Dj*3, M) in ``W``'s dtype. Ids outside ``[0, M)``
-    are masked out before any indexing and contribute zeros."""
+    are masked out before any indexing and contribute zeros.
+
+    A (pose, column) cell with several slots sums them in slot order from
+    zero, as the kernel does, on every device: slots are ranked among the
+    slots of their pose that share their id, and pass ``r`` adds the rank-r
+    slots (no two of which meet in one cell; the others add exact zeros).
+    The pass count is the largest multiplicity, read on the host: the plain
+    version synchronizes."""
     C, N, P = W.shape
     M = hinv.shape[1]
     Dj = C // 3
@@ -85,7 +92,14 @@ def dense_g_a_reference(W: torch.Tensor, lm_slot: torch.Tensor,
     idx = torch.where(ok, lm_slot, 0).long()
     vals = torch.where(ok[None], W, 0.0).permute(1, 0, 2)  # (N, C, P)
     G = torch.zeros((N, C, M), dtype=W.dtype, device=W.device)
-    G.scatter_add_(2, idx[:, None, :].expand(N, C, P), vals)
+    # a slot outside [0, M) gets a key of its own: its rank stays 0, so the
+    # pass count is the largest multiplicity of a real id
+    pos = torch.arange(P, device=W.device)
+    rank = _duplicate_rank(torch.where(ok, lm_slot.long(), M + pos))
+    passes = int(rank.max()) + 1 if rank.numel() else 0
+    for r in range(passes):
+        G.scatter_add_(2, idx[:, None, :].expand(N, C, P),
+                       torch.where((rank == r)[:, None, :], vals, 0.0))
     g = G.to(torch.float32).view(N, Dj, 3, M)
     h = hinv.to(W.dtype).to(torch.float32)
     A = torch.stack(
@@ -96,6 +110,18 @@ def dense_g_a_reference(W: torch.Tensor, lm_slot: torch.Tensor,
         dim=2,
     )  # (N, Dj, 3, M)
     return g.reshape(N, C, M).to(W.dtype), A.reshape(N, C, M).to(W.dtype)
+
+
+def _duplicate_rank(key: torch.Tensor) -> torch.Tensor:
+    """(N, P) rank of each slot among the slots of its row that share its
+    key, in slot order (0 for the first): a stable sort and run offsets."""
+    order = torch.argsort(key, dim=1, stable=True)
+    sk = torch.gather(key, 1, order)
+    pos = torch.arange(key.shape[1], device=key.device).expand_as(key)
+    new = torch.ones_like(sk, dtype=torch.bool)
+    new[:, 1:] = sk[:, 1:] != sk[:, :-1]
+    start = torch.cummax(torch.where(new, pos, 0), dim=1).values
+    return torch.empty_like(order).scatter_(1, order, pos - start)
 
 
 def layout_ids(ell: EllLayout, K: int) -> torch.Tensor:

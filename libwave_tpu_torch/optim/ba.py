@@ -7,6 +7,11 @@ PCG on the reduced camera system (matrix-free, or against an explicit S
 whose G/A build is the CUDA kernel) -> back-substitution -> manifold
 retraction, with a trust-region lambda update on cost decrease.
 
+``axis_name`` (a ``parallel.mesh.Axis``) runs one rank's share of a sharded
+solve (``parallel.dist_ba``): the rank's bank is a contiguous pose block
+(pose-ELL) or a slice of a flat bank, the state and the LM loop are
+replicated, the reduced system is solved by matrix-free PCG.
+
 The reference's ``lax.scan`` over LM iterations is a Python loop of fixed
 length here. Acceptance, convergence and lambda stay 0-d tensors updated
 with ``torch.where``: nothing inside the loop reads a device value on the
@@ -232,23 +237,33 @@ def _prior_terms(problem: BAProblem, state: BAState):
     return diag, (C, iu, ju), g.reshape(O, 6)
 
 
+def _local_pose_view(state: BAState, num_poses: int, axis_name):
+    """(q, p, nb) for the ELL bank: the full state on one device, or this
+    rank's contiguous pose block when sharded (the bank is local)."""
+    q, nb = schur.local_pose_block(state.q, num_poses, axis_name)
+    p, _ = schur.local_pose_block(state.p, num_poses, axis_name)
+    return q, p, nb
+
+
 def ba_cost(problem: BAProblem, state: BAState,
             huber_delta: float | None = None,
-            axis_name: str | None = None,
+            axis_name=None,
             windows: int | None = None) -> torch.Tensor:
     """Weighted (optionally Huber-robustified) reprojection cost +
     pose-graph factor cost + a fixed penalty per behind-camera
     observation. ``windows``: ``problem`` is that many equal windows of a
     disjoint union (:func:`solve_ba_batched`); the cost is (windows,), each
-    window's sums reduced on their own."""
-    schur.no_sharding(axis_name, "ba_cost")
+    window's sums reduced on their own. ``axis_name``: the bank is this
+    rank's share; its cost psums over the axis and the (replicated)
+    pose-graph cost is added once."""
     total = sums(windows)
     if problem.ell is not None:
         N = problem.free_pose.shape[0]
+        q, p, nb = _local_pose_view(state, N, axis_name)
         r, valid = reprojection_residual_ell(
-            problem.K, state.q, state.p, state.lm,
-            problem.lm_idx.reshape(N, -1),
-            problem.uv.T.reshape(2, N, -1),
+            problem.K, q, p, state.lm,
+            problem.lm_idx.reshape(nb, -1),
+            problem.uv.T.reshape(2, nb, -1),
         )
         r = r.reshape(2, -1)
         valid = valid.reshape(-1)
@@ -265,6 +280,8 @@ def ba_cost(problem: BAProblem, state: BAState,
     c = c + _CHEIRALITY_PENALTY * total(
         problem.weight * (~valid).to(r.dtype)
     )
+    if axis_name is not None:
+        c = axis_name.psum(c)
     c = c + pose_graph.pose_graph_cost(
         state.q, state.p, problem.between, problem.priors, windows
     )
@@ -275,24 +292,25 @@ def ba_cost(problem: BAProblem, state: BAState,
 
 def _linearize_ba(problem: BAProblem, state: BAState, lam,
                   huber_delta: float | None = None,
-                  axis_name: str | None = None,
+                  axis_name=None,
                   lm_lam=None) -> schur.SchurBlocks:
     """Linearize every factor (reprojection + pose-graph + marginal head
     prior) at ``state`` and assemble damped normal-equation blocks. Shared
     by the LM iteration and by :func:`ba_reduced_hessian` (``lam=0``).
     ``lm_lam``: the landmarks' damping when it differs from the poses'
-    (per pose and per landmark in the batched solve)."""
-    schur.no_sharding(axis_name, "_linearize_ba")
+    (per pose and per landmark in the batched solve). ``axis_name``: the
+    bank is this rank's share (sharded blocks)."""
     N = problem.free_pose.shape[0]
     M = state.lm.shape[0]
 
     if problem.ell is not None:
+        q_loc, p_loc, nb = _local_pose_view(state, N, axis_name)
         r, J_pose, J_lm, valid = linearize_reprojection_ell(
-            problem.K, state.q, state.p, state.lm,
-            problem.lm_idx.reshape(N, -1),
-            problem.uv.T.reshape(2, N, -1),
+            problem.K, q_loc, p_loc, state.lm,
+            problem.lm_idx.reshape(nb, -1),
+            problem.uv.T.reshape(2, nb, -1),
         )
-        w = problem.weight.reshape(N, -1) * valid.to(r.dtype)
+        w = problem.weight.reshape(nb, -1) * valid.to(r.dtype)
     else:
         r, J_pose, J_lm, valid = linearize_reprojection_cm(
             problem.K, state.q, state.p, state.lm,
@@ -352,7 +370,7 @@ def _linearize_ba(problem: BAProblem, state: BAState, lam,
         r, J_pose, J_lm, w, problem.pose_idx, problem.lm_idx,
         N, M, lam, problem.free_pose,
         extra_Hpp=extra_Hpp, extra_bp=extra_bp, couplings=couplings,
-        ell=problem.ell, lm_damping=lm_lam,
+        ell=problem.ell, axis_name=axis_name, lm_damping=lm_lam,
     )
 
 
@@ -369,10 +387,11 @@ def ba_reduced_hessian(problem: BAProblem, state: BAState,
     return S.reshape(N * 6, N * 6), b.reshape(-1)
 
 
-def _reduced_step(problem: BAProblem, cfg: BAConfig, blocks, rhs,
-                  axis_name=None):
+def _reduced_step(problem: BAProblem, cfg: BAConfig, blocks, rhs):
     """Solve the reduced camera system: dense Schur, or PCG (matrix-free or
-    against an explicit S). Returns (dx_pose, CG iterations)."""
+    against an explicit S; matrix-free for sharded blocks). Returns
+    (dx_pose, CG iterations)."""
+    axis_name = blocks.axis_name
     N = blocks.Hpp.shape[0]
     M = blocks.bl.shape[-1]
     itemsize = rhs.element_size()
@@ -411,7 +430,7 @@ class _Single:
 
 
 def _lm_iteration(problem: BAProblem, cfg: BAConfig, carry,
-                  axis_name: str | None = None, windows=_Single):
+                  axis_name=None, windows=_Single):
     """One LM step. ``carry`` = (state, lam, cost, converged), all tensors;
     returns the new carry and (cost, accepted, cg_iterations). With
     ``windows`` (a :class:`_Windows`), ``problem`` is their disjoint union
@@ -460,23 +479,26 @@ def _lm_iteration(problem: BAProblem, cfg: BAConfig, carry,
 
 @f32_matmuls
 def solve_ba(problem: BAProblem, state: BAState, cfg: BAConfig = BAConfig(),
-             axis_name: str | None = None):
+             axis_name=None):
     """Run ``cfg.max_iterations`` LM iterations. Returns (state, info dict
     of tensors): initial and final cost, the per-iteration accepted cost,
     acceptance flags, CG iteration counts and the final lambda.
 
     Runs on the device of ``state``; matmuls run with TF32 off.
+    ``axis_name`` (a ``parallel.mesh.Axis``): this rank's share of a
+    sharded solve (see :func:`libwave_tpu_torch.parallel.dist_ba.
+    solve_ba_sharded`, the public entry point); every rank runs the same
+    replicated LM loop on the all-reduced cost and takes the same steps.
     """
-    schur.no_sharding(axis_name, "solve_ba")
     cfg.validate()
     lam = torch.full((), cfg.init_lambda, dtype=state.p.dtype,
                      device=state.p.device)
-    cost0 = ba_cost(problem, state, cfg.huber_delta)
+    cost0 = ba_cost(problem, state, cfg.huber_delta, axis_name)
     carry = (state, lam, cost0,
              torch.zeros((), dtype=torch.bool, device=state.p.device))
     costs, accepts, cg_iters = [], [], []
     for _ in range(cfg.max_iterations):
-        carry, (c, a, it) = _lm_iteration(problem, cfg, carry)
+        carry, (c, a, it) = _lm_iteration(problem, cfg, carry, axis_name)
         costs.append(c)
         accepts.append(a)
         cg_iters.append(it)

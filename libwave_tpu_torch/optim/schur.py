@@ -24,9 +24,16 @@ computes the same sums in another order.
 Host-side layout functions (:func:`pack_observations`, :func:`build_ell_layout`,
 :func:`compute_band_plan`) are numpy and return tensors on the requested
 device (the card unless ``device="cpu"``). Loops have a fixed trip count and mask with ``torch.where``: no
-device-to-host synchronization happens inside :func:`pcg`. The sharded
-(``axis_name``) branches of the reference are not ported and raise
-``NotImplementedError``.
+device-to-host synchronization happens inside :func:`pcg`.
+
+Sharded blocks (``axis_name``, a :class:`libwave_tpu_torch.parallel.mesh.Axis`):
+each rank holds its own observation bank and every pose- and landmark-side
+quantity (Hpp, bp, bl, Hll_inv, the CG vectors) replicated. Pose-ELL: the
+bank covers a contiguous block of ``N / axis.size`` poses; landmark-side
+sums psum over the axis, the local pose block all_gathers. Flat (the
+port's counterpart of the reference's GSPMD step, which has no PyTorch
+form): the bank is any slice of a pose-sorted flat bank with global pose
+ids, and both sides psum.
 """
 
 from __future__ import annotations
@@ -41,14 +48,6 @@ from libwave_tpu_torch.ops import segmm
 from libwave_tpu_torch.ops.segmm import EllLayout, dense_g_a_window
 from libwave_tpu_torch.utils.device import resolve
 from libwave_tpu_torch.utils.precision import f32_matmuls
-
-
-def no_sharding(axis_name, what):
-    """Raise for the reference's sharded (``axis_name``) path."""
-    if axis_name is not None:
-        raise NotImplementedError(
-            f"{what}: the sharded (axis_name) path is not ported"
-        )
 
 
 def _host(x):
@@ -332,6 +331,11 @@ class SchurBlocks(NamedTuple):
 
     ``C/ci/cj`` hold pose-pose off-diagonal couplings from pose-graph
     factors: H[ci, cj] += C, H[cj, ci] += C^T (empty banks are zero-length).
+
+    ``axis_name`` (an ``Axis`` or None): sharded blocks (see the module
+    docstring); W, pose_idx, lm_idx and lm_order are this rank's bank, the
+    rest global and replicated, pose-graph couplings evaluated on every
+    rank.
     """
 
     Hpp: torch.Tensor  # (N, D, D) pose diagonal blocks (damped)
@@ -347,7 +351,7 @@ class SchurBlocks(NamedTuple):
     C: torch.Tensor  # (F, D, D) pose-pose cross blocks
     ci: torch.Tensor  # (F,)
     cj: torch.Tensor  # (F,)
-    axis_name: object = None  # always None: sharding is not ported
+    axis_name: object = None  # parallel.mesh.Axis | None: sharded blocks
 
 
 class Window(NamedTuple):
@@ -390,16 +394,34 @@ def window_blocks(blocks: SchurBlocks, w: Window,
     )
 
 
+def _psum(x, axis):
+    return x if axis is None else axis.psum(x)
+
+
+def _lm_sums(vals, lm_order, axis):
+    """Reduce (C, K)/(C, N, Pmax) by landmark into (C, M). Sharded: each
+    rank reduces its bank (the reduce kernel), the partials psum."""
+    out = ell_seg_reduce(vals.reshape(vals.shape[0], -1), lm_order)
+    return _psum(out, axis)
+
+
+def _pose_sums(vals, ell, pose_idx, num_poses, axis):
+    """Reduce by pose into (C, N): dense slot sum (ELL) or segment sum.
+    Sharded: the local (C, Nb) ELL block all_gathers; flat partials psum."""
+    if ell is not None:
+        nb = num_poses if axis is None else num_poses // axis.size
+        out = torch.sum(vals.reshape(vals.shape[0], nb, -1), dim=-1)
+        return out if axis is None else axis.all_gather(out, dim=1)
+    return _psum(_segment_sum(vals, pose_idx, num_poses), axis)
+
+
 def _seg_lm(blocks: SchurBlocks, vals):
-    """Reduce (C, K)/(C, N, Pmax) by landmark into (C, M)."""
-    return ell_seg_reduce(vals.reshape(vals.shape[0], -1), blocks.lm_order)
+    return _lm_sums(vals, blocks.lm_order, blocks.axis_name)
 
 
 def _seg_pose(blocks: SchurBlocks, vals):
-    """Reduce by pose into (C, N): dense slot sum (ELL) or segment sum."""
-    if blocks.ell is not None:
-        return torch.sum(vals, dim=-1)  # (C, N, Pmax) -> (C, N)
-    return _segment_sum(vals, blocks.pose_idx, blocks.bp.shape[0])
+    return _pose_sums(vals, blocks.ell, blocks.pose_idx, blocks.bp.shape[0],
+                      blocks.axis_name)
 
 
 def build_normal_equations(
@@ -407,7 +429,7 @@ def build_normal_equations(
     damping, free_pose,
     extra_Hpp=None, extra_bp=None, couplings=None,
     ell: EllLayout | None = None, pose_dim: int | None = None,
-    axis_name: str | None = None, sum_dtype=None, lm_damping=None,
+    axis_name=None, sum_dtype=None, lm_damping=None,
 ) -> SchurBlocks:
     """Assemble damped normal-equation blocks from a linearized observation
     bank.
@@ -435,8 +457,14 @@ def build_normal_equations(
     cast the pose-block sums ``Hpp``/``bp``/``C`` to this dtype (float64)
     before folding in ``extra_Hpp``/``extra_bp``, so large pose-graph
     information does not annihilate the vision terms in f32.
+
+    ``axis_name`` (a ``parallel.mesh.Axis``): the inputs are this rank's
+    bank; with ``ell`` a contiguous block of ``num_poses / axis.size``
+    poses whose pose-side sums all_gather, flat a slice of the bank with
+    global pose ids whose pose-side sums psum; landmark-side sums psum.
+    ``extra_Hpp``/``extra_bp``/``couplings`` and ``free_pose`` are global
+    and replicated, added once after the collectives.
     """
-    no_sharding(axis_name, "build_normal_equations")
     K = pose_idx.shape[0]
     if r.dim() == 2 and r.shape[0] == K and J_pose.shape[0] == K:
         # block layout -> flat component-major
@@ -478,25 +506,18 @@ def build_normal_equations(
     wJl = J_lm * w
     bl_k = -(wJl[0] * r[0] + wJl[1] * r[1])  # (3, ...)
 
-    if ell is not None:
-        nb = num_poses
+    axis = axis_name
 
-        def seg_pose(vals):
-            return torch.sum(vals.reshape(vals.shape[0], nb, -1), dim=-1)
-    else:
-
-        def seg_pose(vals):
-            return _segment_sum(vals, pose_idx, num_poses)
-
-    def seg_lm(vals):
-        return ell_seg_reduce(vals.reshape(vals.shape[0], -1), lm_order)
+    def seg_pose(vals):
+        return _pose_sums(vals, ell, pose_idx, num_poses, axis)
 
     Hpp = _embed_block(_assemble_sym(seg_pose(Hpp_k), Dj), D)  # (N, D, D)
-    Hll = seg_lm(Hll_k)  # (6, M)
+    Hll = _lm_sums(Hll_k, lm_order, axis)  # (6, M)
     bp = _pad_cols(seg_pose(bp_k).T, D)  # (N, D)
-    bl = seg_lm(bl_k)  # (3, M)
+    bl = _lm_sums(bl_k, lm_order, axis)  # (3, M)
 
     if ell is not None:
+        nb = num_poses if axis is None else num_poses // axis.size
         W = W.reshape(Dj * 3, nb, -1)  # matvec broadcasting layout
 
     if sum_dtype is not None:
@@ -539,7 +560,7 @@ def build_normal_equations(
         Hpp=Hpp, Hll_inv=Hll_inv, W=W, bp=bp, bl=bl,
         pose_idx=pose_idx, lm_idx=lm_idx, lm_order=lm_order,
         free_pose=free_pose, ell=ell,
-        C=C, ci=ci, cj=cj,
+        C=C, ci=ci, cj=cj, axis_name=axis,
     )
 
 
@@ -551,11 +572,25 @@ def _project(x, free_pose):
     return x * free_pose
 
 
+def local_pose_block(x, num_poses: int, axis_name):
+    """(x_local, nb): this rank's contiguous pose block of replicated
+    (N, ...) data under sharded ELL blocks; identity when axis_name is
+    None."""
+    if axis_name is None:
+        return x, num_poses
+    nb = num_poses // axis_name.size
+    lo = axis_name.index * nb
+    return x[lo:lo + nb], nb
+
+
 def _broadcast_pose(blocks: SchurBlocks, x):
     """Per-observation view of per-pose data x (N, D): a free broadcast
-    (D, N, 1) on the ELL path, a gather on the flat path."""
+    (D, N, 1) on the ELL path, a gather on the flat path. Sharded ELL:
+    this rank's contiguous pose block of the replicated x."""
     if blocks.ell is not None:
-        return x.T[:, :, None]  # (D, N, 1) broadcasts over Pmax
+        if blocks.axis_name is not None:
+            x, _ = local_pose_block(x, x.shape[0], blocks.axis_name)
+        return x.T[:, :, None]  # (D, Nb, 1) broadcasts over Pmax
     return x.T[:, blocks.pose_idx]  # (D, K)
 
 
@@ -711,7 +746,13 @@ def dense_reduced_system(blocks: SchurBlocks,
 
     ``_force_path`` ("kernel" | "scatter", tests only) overrides the device
     gate so the banded and chunked code runs on CPU through the plain G/A.
+
+    Single-device only: sharded blocks raise (S couples poses across
+    ranks; the sharded solvers take PCG).
     """
+    if blocks.axis_name is not None:
+        raise ValueError("dense_reduced_system: the blocks are sharded "
+                         "(axis_name); use PCG")
     D = blocks.bp.shape[1]
     N = blocks.Hpp.shape[0]
     M = blocks.bl.shape[-1]

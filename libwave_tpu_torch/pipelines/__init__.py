@@ -46,3 +46,7 @@ from libwave_tpu_torch.pipelines.lidar_odometry import (  # noqa: F401
     LidarOdometryResult,
     lidar_odometry,
 )
+from libwave_tpu_torch.pipelines.overlap import (  # noqa: F401
+    pipelined_windows,
+    serial_windows,
+)

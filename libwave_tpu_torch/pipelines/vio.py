@@ -17,8 +17,13 @@ The reference's LM ``lax.scan`` is a fixed-trip Python loop with
 host. The IMU Jacobians come from forward-mode AD (``torch.func.jvp``
 under ``vmap`` over the tangent directions), as the reference's
 ``jax.jacfwd``. The cost total accumulates in f64 and behind-camera
-observations carry a 1e10 penalty each (BA uses 1e6). The sharded
-(``axis_name``) branches are not ported and raise ``NotImplementedError``.
+observations carry a 1e10 penalty each (BA uses 1e6).
+
+``axis_name`` (a ``parallel.mesh.Axis``) runs one rank's share of a sharded
+solve (``parallel.dist_vio``): the rank's reprojection bank is a contiguous
+keyframe block whose sums cross the axis as in ``optim.schur``, each rank
+linearizes its slice of the IMU bank and the slices all_gather, the states
+and the LM loop are replicated, the reduced system is solved by PCG.
 """
 
 from __future__ import annotations
@@ -135,6 +140,24 @@ def _dtype(name):
     return None if name is None else getattr(torch, name)
 
 
+def _imu_share(problem: VIOProblem, axis_name) -> VIOProblem:
+    """The IMU bank cut to this rank's ``F / axis.size`` factors (the
+    whole bank when ``axis_name`` is None). The partitioner pads F to a
+    multiple of the axis size with zero-information factors."""
+    if axis_name is None:
+        return problem
+    fb = problem.imu_i.shape[0] // axis_name.size
+    lo = axis_name.index * fb
+
+    def cut(x):
+        return x[lo:lo + fb]
+
+    return problem._replace(
+        pim=type(problem.pim)(*(cut(x) for x in problem.pim)),
+        imu_i=cut(problem.imu_i), imu_j=cut(problem.imu_j),
+        imu_sqrt_info=cut(problem.imu_sqrt_info))
+
+
 def _imu_whitened(problem: VIOProblem, state: VIOState):
     """The IMU bank's whitened residual as a function of the tangent
     perturbations ``(xi_i, xi_j)`` (each (F, 15)) of its two keyframes, in
@@ -162,7 +185,7 @@ def _imu_whitened(problem: VIOProblem, state: VIOState):
 
 
 def _imu_linearize(problem: VIOProblem, state: VIOState,
-                   axis_name: str | None = None):
+                   axis_name=None):
     """Residuals + Jacobians of all IMU factors wrt the 15-dim blocks,
     whitened: (r (F, 9), Ji (F, 9, 15), Jj (F, 9, 15)).
 
@@ -170,8 +193,11 @@ def _imu_linearize(problem: VIOProblem, state: VIOState,
     whole bank's residual per tangent direction, the 30 directions under
     ``vmap``. (Per-factor ``vmap(jacfwd(...))`` would run the residual on
     0-d tensors, where PyTorch's forward AD gives float64 tangents to
-    float32 operands.)"""
-    schur.no_sharding(axis_name, "_imu_linearize")
+    float32 operands.) ``axis_name``: each rank linearizes its slice of the
+    bank (:func:`_imu_share`) and the slices all_gather."""
+    if axis_name is not None:
+        return tuple(axis_name.all_gather(x) for x in _imu_linearize(
+            _imu_share(problem, axis_name), state))
     res, z = _imu_whitened(problem, state)
     F = z.shape[0]
     basis = torch.eye(2 * D, dtype=z.dtype, device=z.device)[:, None, :]
@@ -254,24 +280,36 @@ def _prior_terms(problem: VIOProblem, state: VIOState):
     return diag, (C, iu.to(torch.int32), ju.to(torch.int32)), g.reshape(O, D)
 
 
+def _imu_residuals(problem: VIOProblem, state: VIOState, axis_name=None):
+    """The IMU bank's whitened residuals (F, 9), without Jacobians; sharded,
+    each rank's slice all_gathers."""
+    res, z = _imu_whitened(_imu_share(problem, axis_name), state)
+    r = res(z, z)
+    return r if axis_name is None else axis_name.all_gather(r)
+
+
 def vio_cost(problem: VIOProblem, state: VIOState,
-             axis_name: str | None = None,
+             axis_name=None,
              huber_delta: float | None = None) -> torch.Tensor:
     """Total cost (f64): whitened reprojection (optionally Huber) + 1e10
     per behind-camera observation + IMU + bias walk + bias prior + the
-    marginal head prior."""
-    schur.no_sharding(axis_name, "vio_cost")
+    marginal head prior. ``axis_name``: the reprojection bank is this
+    rank's keyframe block; its cost psums over the axis while the
+    (replicated) IMU and bias terms are added once."""
     N = problem.free_pose.shape[0]
+    q_cam, nb = schur.local_pose_block(
+        _camera_quats(problem, state.q), N, axis_name)
+    p_loc, _ = schur.local_pose_block(state.p, N, axis_name)
     r, valid = reprojection_residual_ell(
         problem.K,
-        _camera_quats(problem, state.q),
-        state.p,
+        q_cam,
+        p_loc,
         state.lm,
-        problem.lm_idx.reshape(N, -1),
-        problem.uv.T.reshape(2, N, -1),
+        problem.lm_idx.reshape(nb, -1),
+        problem.uv.T.reshape(2, nb, -1),
     )
     f64 = torch.float64
-    wf = problem.obs_weight.reshape(N, -1)
+    wf = problem.obs_weight.reshape(nb, -1)
     wv = wf * valid.to(r.dtype)
     sq_white = (r[0] * r[0] + r[1] * r[1]) / problem.pixel_sigma**2
     if huber_delta is None:
@@ -279,8 +317,9 @@ def vio_cost(problem: VIOProblem, state: VIOState,
     else:
         c = torch.sum(wv * _huber_rho(sq_white, huber_delta)).to(f64)
     c = c + _CHEIRALITY_PENALTY * torch.sum(wf * (~valid).to(r.dtype)).to(f64)
-    res, z = _imu_whitened(problem, state)  # residual only: no Jacobian
-    r_imu = res(z, z)
+    if axis_name is not None:
+        c = axis_name.psum(c)
+    r_imu = _imu_residuals(problem, state, axis_name)
     c = c + 0.5 * torch.sum(r_imu * r_imu).to(f64)
     r_bw, _, _ = _bias_walk_linearize(problem, state)
     c = c + 0.5 * torch.sum(r_bw * r_bw).to(f64)
@@ -295,13 +334,14 @@ def vio_cost(problem: VIOProblem, state: VIOState,
 
 def _linearize_vio(problem: VIOProblem, state: VIOState, lam,
                    huber_delta: float | None = None,
-                   axis_name: str | None = None,
+                   axis_name=None,
                    hessian_dtype: str | None = None) -> schur.SchurBlocks:
     """Linearize every factor (reprojection + IMU + bias walk + bias prior
     + marginal head prior) at ``state`` and assemble damped normal-equation
     blocks. ``hessian_dtype`` widens the pose-block sums before they meet;
-    the factor blocks stay in the state's dtype."""
-    schur.no_sharding(axis_name, "_linearize_vio")
+    the factor blocks stay in the state's dtype. ``axis_name``: sharded
+    blocks (this rank's keyframe block of the reprojection bank, its slice
+    of the IMU bank)."""
     N = problem.free_pose.shape[0]
     M = state.lm.shape[0]
     dtype = state.p.dtype
@@ -310,13 +350,16 @@ def _linearize_vio(problem: VIOProblem, state: VIOState, lam,
     # only [omega, dp] (6 of 15 dims: build_normal_equations' pose_dim).
     # The camera is body ∘ q_BC with zero lever arm, so
     # J_omega_body = J_omega_cam @ R_BC^T.
+    q_cam, nb = schur.local_pose_block(
+        _camera_quats(problem, state.q), N, axis_name)
+    p_loc, _ = schur.local_pose_block(state.p, N, axis_name)
     r, J6, J_lm, valid = linearize_reprojection_ell(
         problem.K,
-        _camera_quats(problem, state.q),
-        state.p,
+        q_cam,
+        p_loc,
         state.lm,
-        problem.lm_idx.reshape(N, -1),
-        problem.uv.T.reshape(2, N, -1),
+        problem.lm_idx.reshape(nb, -1),
+        problem.uv.T.reshape(2, nb, -1),
     )
     if problem.q_BC is not None:
         R_BC = so3.quat_to_rot(problem.q_BC)
@@ -326,7 +369,7 @@ def _linearize_vio(problem: VIOProblem, state: VIOState, lam,
             for a in range(2)
         ])
         J6 = torch.cat([Jw, J6[:, 3:6]], dim=1)
-    w = (problem.obs_weight.reshape(N, -1) * valid.to(dtype)
+    w = (problem.obs_weight.reshape(nb, -1) * valid.to(dtype)
          / problem.pixel_sigma**2)
     if huber_delta is not None:
         rn = torch.sqrt(torch.clamp(r[0] * r[0] + r[1] * r[1], min=1e-20)
@@ -334,7 +377,7 @@ def _linearize_vio(problem: VIOProblem, state: VIOState, lam,
         w = w * torch.clamp(huber_delta / rn, max=1.0)
 
     # IMU + bias-walk factors -> diagonal contributions + couplings
-    r_imu, Ji, Jj = _imu_linearize(problem, state)
+    r_imu, Ji, Jj = _imu_linearize(problem, state, axis_name)
     r_bw, Bi, Bj = _bias_walk_linearize(problem, state)
     bi, bj = problem.imu_i, problem.imu_j
     bil, bjl = bi.long(), bj.long()
@@ -381,7 +424,7 @@ def _linearize_vio(problem: VIOProblem, state: VIOState, lam,
         N, M, lam, problem.free_pose,
         extra_Hpp=extra_Hpp, extra_bp=extra_bp,
         couplings=(C_bank, ci_bank, cj_bank),
-        ell=problem.ell, pose_dim=D, sum_dtype=sdt,
+        ell=problem.ell, pose_dim=D, axis_name=axis_name, sum_dtype=sdt,
     )
 
 
@@ -433,19 +476,19 @@ def vio_marginalize_device(problem: VIOProblem, state: VIOState,
 
 
 def _vio_iteration(problem: VIOProblem, cfg: VIOConfig, carry,
-                   axis_name: str | None = None):
+                   axis_name=None):
     """One LM step. ``carry`` = (state, lam, cost); returns the new carry
-    and (cost, accepted, cg_iterations)."""
-    schur.no_sharding(axis_name, "_vio_iteration")
+    and (cost, accepted, cg_iterations). Sharded (``axis_name``): PCG."""
     state, lam, cost = carry
     N = problem.free_pose.shape[0]
     M = state.lm.shape[0]
     # static solver choice first: the widened-Hessian path only pays off
     # under the dense factorization, so PCG keeps the state's dtype. The
     # G-bytes gate uses the f32 itemsize, as the G/A build is f32.
-    use_dense = _use_dense_schur(cfg, N, D, 6, M, 4, None)
+    use_dense = _use_dense_schur(cfg, N, D, 6, M, 4, axis_name)
     hdt = cfg.hessian_dtype if use_dense else None
-    blocks = _linearize_vio(problem, state, lam, cfg.huber_delta, None, hdt)
+    blocks = _linearize_vio(problem, state, lam, cfg.huber_delta, axis_name,
+                            hdt)
     rhs = schur.schur_rhs(blocks)
     if use_dense:
         dx = schur.dense_schur_solve(blocks, rhs).to(state.p.dtype)
@@ -459,7 +502,7 @@ def _vio_iteration(problem: VIOProblem, cfg: VIOConfig, carry,
     dlm = schur.back_substitute(blocks, dx)
 
     new_state = state.retract(dx, dlm, problem.free_pose)
-    new_cost = vio_cost(problem, new_state, None, cfg.huber_delta)
+    new_cost = vio_cost(problem, new_state, axis_name, cfg.huber_delta)
     step_ok = torch.isfinite(torch.sum(dx)) & torch.isfinite(torch.sum(dlm))
     accept = (new_cost < cost) & torch.isfinite(new_cost) & step_ok
     state = VIOState(*(torch.where(accept, new, old)
@@ -475,15 +518,16 @@ def _vio_iteration(problem: VIOProblem, cfg: VIOConfig, carry,
 @f32_matmuls
 def solve_vio(problem: VIOProblem, state: VIOState,
               cfg: VIOConfig = VIOConfig(),
-              axis_name: str | None = None, lam0=None):
+              axis_name=None, lam0=None):
     """Run ``cfg.max_iterations`` LM iterations on the device of
     ``state``. Returns (state, info dict of tensors): initial and final
     cost (f64), the per-iteration accepted cost, acceptance flags, CG
     iteration counts and the final lambda. ``lam0`` (a 0-d tensor or a
     number) is the starting lambda, so a caller can chunk a solve without
-    resetting the lambda adaptation."""
-    schur.no_sharding(axis_name, "solve_vio")
-    cost0 = vio_cost(problem, state, None, cfg.huber_delta)
+    resetting the lambda adaptation. ``axis_name`` (a
+    ``parallel.mesh.Axis``): this rank's share of a sharded solve (see
+    :func:`libwave_tpu_torch.parallel.dist_vio.solve_vio_sharded`)."""
+    cost0 = vio_cost(problem, state, axis_name, cfg.huber_delta)
     if lam0 is None:
         lam0 = cfg.init_lambda
     if isinstance(lam0, torch.Tensor):
@@ -493,7 +537,7 @@ def solve_vio(problem: VIOProblem, state: VIOState,
     carry = (state, lam, cost0)
     costs, accepts, cg_iters = [], [], []
     for _ in range(cfg.max_iterations):
-        carry, (c, a, it) = _vio_iteration(problem, cfg, carry)
+        carry, (c, a, it) = _vio_iteration(problem, cfg, carry, axis_name)
         costs.append(c)
         accepts.append(a)
         cg_iters.append(it)

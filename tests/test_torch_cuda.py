@@ -26,7 +26,11 @@ duplicate-id sums may differ: tolerance 1e-6 * max|plain|, and exact
 equality at every cell that takes at most one nonzero slot. The segment
 reduce adds in the plain version's order: equal bit for bit, and
 bit-identical across runs; the broadcast copies: exact equality. The
-Hamming outputs are integers: exact equality.
+Hamming outputs are integers: exact equality. The plain G/A sums duplicate
+ids in slot order, pass by pass: bit-identical across runs. A one-rank
+NCCL group runs the sharded BA solve to the single-device numbers, bit for
+bit. ``utils.trace.profile_trace`` names the segment reduce kernel after
+other profiler sessions and a CUDA graph ran in the process.
 """
 
 import contextlib
@@ -1163,3 +1167,91 @@ def test_kmeans_build_is_deterministic(cuda_device):
     assert held == [True] * p.kmeans_iterations
     assert torch.equal(a.centroids, b.centroids)
     assert torch.equal(a.sorted_ids, b.sorted_ids)
+
+
+@pytest.mark.cuda
+def test_plain_g_a_is_bit_identical_across_runs(cuda_device):
+    """The plain G/A sums a cell's duplicate-id slots in slot order, pass
+    by pass, so its rounding no longer follows the card's atomics: bit for
+    bit the same over 20 runs at the [3-700-257-0-257] shape (a third of
+    each pose's slots share one id), and the kernel stays within its
+    1e-6 * max|plain| bound of every run."""
+    W, ids, hinv = _inputs(np.random.default_rng(0), cuda_device, 3, 700,
+                           257, 0, 257)
+    G0, A0 = segmm.dense_g_a_reference(W, ids, hinv)
+    G, A = segmm.dense_g_a(W, ids, hinv)
+    for _ in range(20):
+        Gr, Ar = segmm.dense_g_a_reference(W, ids, hinv)
+        assert torch.equal(Gr, G0) and torch.equal(Ar, A0)
+    for x, ref in ((G, G0), (A, A0)):
+        assert float((x - ref).abs().max()) <= 1e-6 * float(ref.abs().max())
+
+
+@pytest.mark.cuda
+def test_sharded_one_rank_nccl_equals_single_device(cuda_device, tmp_path):
+    """``solve_ba_sharded`` over a one-rank NCCL group (its collectives go
+    through NCCL) gives the single-device ``solve_ba``'s numbers bit for
+    bit, with the same segment launches."""
+    import torch.distributed as dist
+
+    from libwave_tpu_torch.parallel import (
+        MeshConfig,
+        MultiHostConfig,
+        initialize_multihost,
+        make_mesh,
+        partition_ba_problem,
+        solve_ba_sharded,
+    )
+
+    problem, state = bench_problem.make_problem(
+        num_poses=20, num_landmarks=500, obs_per_pose=40, device=cuda_device)
+    cfg = dataclasses.replace(bench_problem.bench_config(3),
+                              explicit_s="never")
+    initialize_multihost(MultiHostConfig(
+        coordinator_address=f"file://{tmp_path / 'store'}",
+        num_processes=1, process_id=0), backend="nccl")
+    try:
+        mesh = make_mesh(MeshConfig())
+        assert mesh.backend == "nccl" and mesh.axis("dp").live
+        stacked, padded = partition_ba_problem(problem, state, 1)
+        before = segmm.seg_reduce_sorted.launches
+        out, info = solve_ba_sharded(stacked, padded, mesh, cfg)
+        sharded_launches = segmm.seg_reduce_sorted.launches - before
+    finally:
+        dist.destroy_process_group()
+    before = segmm.seg_reduce_sorted.launches
+    ref, rinfo = ba.solve_ba(problem, state, cfg)
+    assert segmm.seg_reduce_sorted.launches - before == sharded_launches
+    assert torch.equal(info["costs"], rinfo["costs"])
+    assert torch.equal(out.p, ref.p) and torch.equal(out.lm, ref.lm)
+
+
+@pytest.mark.cuda
+def test_profile_trace_names_the_kernel_after_earlier_sessions(cuda_device,
+                                                              tmp_path):
+    """``utils.trace.profile_trace`` records the segment reduce kernel, in
+    its trace and its sums by kernel, when two other ``torch.profiler``
+    sessions and a CUDA graph of the same kernel ran before it in the
+    process."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from libwave_tpu_torch.utils.trace import profile_trace
+
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    vals = torch.randn((6, 4096), generator=g, device=cuda_device)
+    ell = segmm.sorted_layout(torch.randint(0, 300, (4096,), generator=g,
+                                            device=cuda_device), 300)
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]):
+            segmm.seg_reduce_sorted(vals, *ell)
+            (vals * 2.0).sum()
+            torch.cuda.synchronize()
+    bench_problem.device_ms(lambda: segmm.seg_reduce_sorted(vals, *ell), 5)
+    with profile_trace(str(tmp_path)) as prof:
+        segmm.seg_reduce_sorted(vals, *ell)
+        torch.cuda.synchronize()
+    assert "seg_reduce_sorted_kernel" in (tmp_path / "trace.json").read_text()
+    assert any("seg_reduce_sorted_kernel" in e.key
+               for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA)

@@ -160,5 +160,15 @@ def test_params_validate_and_sharded_is_not_ported():
     assert tm.ICPParams() == tm.ICPParams(**{
         f: getattr(jm.ICPParams(), f)
         for f in jm.ICPParams.__dataclass_fields__})
-    with pytest.raises(NotImplementedError, match="A.8"):
-        tm.multi_match_sharded(None, None, None)
+    # multi_match_sharded (a stub that raised before the distributed
+    # layer was ported) keeps the reference's error: the batch must divide
+    # the ranks of the axis (a 2-rank axis, checked before any collective)
+    from libwave_tpu_torch.parallel.mesh import Axis, Mesh
+
+    mesh = Mesh(np.arange(2), ("dp",), torch.device("cpu"), None,
+                {"dp": Axis("dp", 2, 0)})
+    a, b = scan_pair(n=64)
+    refs = tm.make_cloud(torch.as_tensor(np.stack([a] * 3)))
+    tgts = tm.make_cloud(torch.as_tensor(np.stack([b] * 3)))
+    with pytest.raises(ValueError, match="divisible"):
+        tm.multi_match_sharded(refs, tgts, mesh)

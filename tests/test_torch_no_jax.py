@@ -59,7 +59,12 @@ for new in ("ops.hamming", "vision.matcher", "vision.tracker",
             "geography.world_frame", "containers.measurement",
             "geometry.frames", "geometry.pose_cov", "controls",
             "controls.pid", "kinematics.pose", "kinematics.gimbal",
-            "kinematics.quadrotor", "bench_trajectory"):
+            "kinematics.quadrotor", "bench_trajectory", "parallel",
+            "parallel.mesh", "parallel.dist_ba", "parallel.dist_vio",
+            "parallel.dist_pose_graph", "parallel.multihost",
+            "pipelines.overlap", "utils.trace", "utils.timing", "utils.math",
+            "utils.angles", "utils.io", "utils.file", "utils.log", "testing",
+            "viz", "bench_parallel"):
     assert "libwave_tpu_torch." + new in names, new
 # cam0 PNGs are written and read back with PIL blocked
 import os, tempfile
@@ -120,8 +125,9 @@ def test_port_and_chip_smoke_import_without_jax():
     count = int(proc.stdout.split()[1])
     # the back end's, the front end's, VIO's, EuRoC VIO's, the windowed
     # solvers', the lidar path's, the pixels path's and the trajectory
-    # back end's and leaves' modules
-    assert count >= 80
+    # back end's and leaves' modules, the distributed layer and the last
+    # utilities
+    assert count >= 100
 
 
 def test_chip_smoke_fails_without_cuda():

@@ -93,8 +93,10 @@ def lin(rng):
     )
 
 
-def _blocks(lin, layout, with_pg=True, sum_dtype=None, dtype=np.float64):
-    """(jax blocks, torch blocks) for one layout: "ell", "flat", "block"."""
+def _blocks(lin, layout, with_pg=True, sum_dtype=None, dtype=np.float64,
+            axis_name=None):
+    """(jax blocks, torch blocks) for one layout: "ell", "flat", "block";
+    ``axis_name`` goes to the port's build only."""
     r, Jp, Jl, w = (lin[k].astype(dtype) for k in ("r", "J_pose", "J_lm", "w"))
     if layout != "ell":
         r, Jp, Jl = (x.reshape(x.shape[:-2] + (-1,)) for x in (r, Jp, Jl))
@@ -122,6 +124,7 @@ def _blocks(lin, layout, with_pg=True, sum_dtype=None, dtype=np.float64):
         ell=None if ell is None else ts.build_ell_layout(
             lin["lm_idx"], M, device="cpu"),
         sum_dtype=None if sum_dtype is None else torch.float64,
+        axis_name=axis_name,
     )
     return bj, bt
 
@@ -260,11 +263,21 @@ def test_scatter_reduced_system(layout, lin):
 
 
 def test_sharded_path_not_ported(lin):
-    with pytest.raises(NotImplementedError):
-        ts.build_normal_equations(
-            *(torch.zeros(1) for _ in range(6)), 1, 1, 0.0, torch.ones(1),
-            axis_name="dp",
-        )
+    """The sharded (``axis_name``) build, a stub that raised until the
+    distributed layer was ported: on a one-rank axis (identity
+    collectives) it gives the single-device blocks, in both layouts, and
+    the explicit reduced system refuses sharded blocks."""
+    from libwave_tpu_torch.parallel.mesh import Axis
+
+    for layout in ("ell", "flat"):
+        _, bt = _blocks(lin, layout)
+        _, sharded = _blocks(lin, layout, axis_name=Axis("dp", 1, 0))
+        for f in ("Hpp", "Hll_inv", "W", "bp", "bl", "C"):
+            assert torch.equal(getattr(sharded, f), getattr(bt, f)), f
+        close(ts.schur_matvec(sharded, sharded.bp),
+              ts.schur_matvec(bt, bt.bp), rtol=0)
+        with pytest.raises(ValueError, match="sharded"):
+            ts.dense_reduced_system(sharded)
 
 
 @pytest.fixture(scope="module")

@@ -88,5 +88,13 @@ def test_lam0_chunks_and_sharding_not_ported(problems):
     np.testing.assert_allclose(
         np.concatenate([i1["costs"].numpy(), i2["costs"].numpy()]),
         i4["costs"].numpy(), rtol=1e-12)
-    with pytest.raises(NotImplementedError):
-        tv.solve_vio(pt, st, cfg, axis_name="dp")
+    # the sharded path (a stub that raised before the distributed layer
+    # was ported) on a one-rank axis: the single-device solve
+    from libwave_tpu_torch.parallel.mesh import Axis
+
+    _, i1s = tv.solve_vio(pt, st, tv.VIOConfig(
+        max_iterations=2, cg_max_iters=20, solver="pcg"))
+    _, i1a = tv.solve_vio(pt, st, tv.VIOConfig(
+        max_iterations=2, cg_max_iters=20, solver="pcg"),
+        axis_name=Axis("dp", 1, 0))
+    assert torch.equal(i1a["costs"], i1s["costs"])
