@@ -321,14 +321,19 @@ it imports no JAX. Phases, each reported on its own line:
     iterations/s per rank and the collectives' share of an iteration. At
     2 ranks also: a 20-pose f64 problem sharded on the card against the
     same on the CPU (poses and landmarks within 1e-9 m, costs within rtol
-    1e-9 + atol 1e-11 of the first iteration's); ``shard_ba_problem`` +
-    ``distributed_lm_step`` on the headline problem at f64 against a local
-    LM iteration (rtol 1e-7); ``bench_vio``'s problem through
+    1e-9 + atol 1e-11 of the first iteration's); ``bench_vio``'s problem through
     ``solve_vio_sharded`` (PCG; first iteration within rtol 1e-3 of the
     single-device PCG solve, keyframes/s); the lidar phase's 49 pairs (one
     masked pair added) through ``multi_match_sharded`` within 1.5x + 1 mm
     of one rank's ``multi_match`` error, whether the bits are equal
-    printed. At 2 and 4: ``bench_parallel.circle_graph(1997)`` (f64;
+    printed. At 2 and 4: ``shard_ba_problem`` + ``distributed_lm_step`` on
+    the headline problem at f64 on the flat (R, 1) mesh and with landmark
+    rows over tp, (1, 2) at 2 ranks, (2, 2) and (1, 4) at 4: the cost
+    within rtol 1e-7 of a local LM iteration's, each rank holding ceil(M /
+    tp) landmark rows, ranks and dp replicas equal bit for bit, the reduce
+    and broadcast launches per rank the flat bank's, one step's calls held
+    to the plain versions bit for bit, each rank's landmark-side bytes and
+    peak memory printed; ``bench_parallel.circle_graph(1997)`` (f64;
     every closure kind) through ``solve_pose_graph_blocks``, the final
     cost within rtol 1e-6 of ``solve_pose_graph`` on the card,
     ``unpartition`` giving the poses back. Numbers of ranks sharing one
@@ -3705,7 +3710,10 @@ DIST_TIMEOUT = 480  # s for one group of ranks, start-up included
 DIST_GROUPS = ((1, "nccl", ("dist_ba",)),
                (2, "gloo", ("dist_ba", "dist_ba_f64", "dist_lm_step",
                             "dist_vio", "dist_pose_graph", "multi_match")),
-               (4, "gloo", ("dist_ba", "dist_pose_graph")))
+               (4, "gloo", ("dist_ba", "dist_lm_step", "dist_pose_graph")))
+# the one-step's (dp, tp) meshes at each number of ranks: the flat bank
+# first (landmark rows whole on every rank), then landmark rows over tp
+DIST_LM_MESHES = {2: ((2, 1), (1, 2)), 4: ((4, 1), (2, 2), (1, 4))}
 DIST_PG_POSES = 1997  # not divisible by 2 or 4: both pad
 DIST_PG_CFG = PoseGraphConfig(max_iterations=4, cg_max_iters=30)
 # a few hundred landmarks at f64, CG run to convergence, so the card's and
@@ -3842,20 +3850,53 @@ def _rank_dist_ba_f64(mesh, dev, out):
 
 
 def _rank_dist_lm_step(mesh, dev, out):
-    from libwave_tpu_torch.parallel import distributed_lm_step, \
-        shard_ba_problem
+    """``shard_ba_problem`` + ``distributed_lm_step`` on the headline
+    problem at f64 on each (dp, tp) mesh of DIST_LM_MESHES: per mesh the
+    cost, the poses, the rank's chunk and the gathered map, the counted
+    step's launches and peak memory, the landmark-side bytes, and a second
+    step with every reduce and broadcast call held to its plain version.
+    Rank 0 also runs a local LM iteration."""
+    from libwave_tpu_torch.parallel import MeshConfig, distributed_lm_step, \
+        gather_landmarks, make_mesh, shard_ba_problem
 
     problem, state = _to_f64(*bench_problem.make_problem(device=dev))
     cfg = _dist_cfg()
-    sharded, st = shard_ba_problem(problem, state, mesh)
-    _, cost = distributed_lm_step(sharded, st, cfg)
-    out["step_cost"] = float(cost)
+    M = state.lm.shape[0]
+    lam = torch.tensor(1e-4, dtype=torch.float64, device=dev)
+    for dp, tp in DIST_LM_MESHES[mesh.size]:
+        m = mesh if tp == 1 else make_mesh(MeshConfig(dp=dp, tp=tp),
+                                           device=dev)
+        sharded, st = shard_ba_problem(problem, state, m)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_launches()
+        new, cost = distributed_lm_step(sharded, st, cfg)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        peak = torch.cuda.max_memory_allocated(dev)
+        whole = gather_landmarks(new, m, M)
+        blocks = ba._linearize_ba(sharded.problem, st, lam, cfg.huber_delta,
+                                  sharded.axes)
+        stats = {}
+        with _held_to_plain(f"dist_lm_step {dp}x{tp}", stats):
+            distributed_lm_step(sharded, st, cfg)
+        torch.cuda.synchronize()
+        out[f"step_{dp}x{tp}"] = dict(
+            cost=float(cost), q=new.q.cpu().numpy(), p=new.p.cpu().numpy(),
+            chunk=new.lm.cpu().numpy(), lm=whole.cpu().numpy(),
+            index=(m.axis("dp").index, m.axis("tp").index), counts=counts,
+            held={k: v["calls"] for k, v in stats.items()}, peak=peak,
+            lm_bytes=(st.lm.nbytes + blocks.Hll_inv.nbytes
+                      + blocks.bl.nbytes),
+            bank=int(sharded.problem.pose_idx.shape[0]))
+        del sharded, st, new, whole, blocks
     if mesh.axis(mesh.axis_names).index == 0:
-        lam = torch.tensor(1e-4, dtype=torch.float64, device=dev)
         carry = (state, lam, ba.ba_cost(problem, state),
                  torch.zeros((), dtype=torch.bool, device=dev))
-        (_, _, local, _), _ = ba._lm_iteration(problem, cfg, carry)
-        out["step_local"] = float(local)
+        (local, _, cost, _), _ = ba._lm_iteration(problem, cfg, carry)
+        out["step_local"] = dict(cost=float(cost), q=local.q.cpu().numpy(),
+                                 p=local.p.cpu().numpy(),
+                                 lm=local.lm.cpu().numpy())
 
 
 def _rank_dist_vio(mesh, dev, out):
@@ -4127,15 +4168,6 @@ def _check_group2(outs, smi):
           f"landmarks {lgap:.3e} m (limit 1e-9): "
           f"{' '.join(f'{c:.12e}' for c in card[0])}")
 
-    _same_on_ranks("dist_lm_step", outs, ("step_cost",))
-    rel = abs(r0["step_cost"] - r0["step_local"]) / abs(r0["step_local"])
-    check(rel <= 1e-7, f"dist_lm_step: {r0['step_cost']} vs a local LM "
-          f"iteration's {r0['step_local']}")
-    print(f"dist_lm_step: 2 gloo ranks, the headline problem at f64 as a "
-          f"flat bank split in two: one LM iteration costs "
-          f"{r0['step_cost']:.12e}, a local iteration {r0['step_local']:.12e} "
-          f"(rel {rel:.3e}, rtol 1e-7)")
-
     _same_on_ranks("dist_vio", outs, ("vio_costs", "vio_p"))
     cfg = bench_problem.vio_config("pcg")
     it, cg = cfg.max_iterations, cfg.cg_max_iters
@@ -4178,6 +4210,67 @@ def _check_group2(outs, smi):
           f"{pairs / r0['mm_wall']:.3f} pairs/s | {smi}")
 
 
+def _check_lm_step(outs, world, smi):
+    """The one-step on each (dp, tp) mesh: the cost within rtol 1e-7 of a
+    local LM iteration's, the poses and the gathered map near its (1e-6 m,
+    a sanity bound: the two sum in other orders), the poses and cost the
+    same bits on every rank and a chunk the same on its dp replicas, each
+    rank holding ceil(M / tp) landmark rows, the reduce and broadcast
+    launches per rank those of the flat bank, one step's calls held to the
+    plain versions bit for bit."""
+    local = outs[0]["step_local"]
+    M = local["lm"].shape[0]
+    flat = f"{world}x1"
+    for dp, tp in DIST_LM_MESHES[world]:
+        tag = f"{dp}x{tp}"
+        runs = [o[f"step_{tag}"] for o in outs]
+        r0 = runs[0]
+        what = f"dist_lm_step {tag}"
+        mt = -(-M // tp)
+        for r, run in enumerate(runs):
+            check(run["index"] == (r // tp, r % tp),
+                  f"{what}: rank {r} is at {run['index']}")
+            check(run["chunk"].shape == (mt, 3),
+                  f"{what}: rank {r} holds {run['chunk'].shape} landmark "
+                  f"rows, not ({mt}, 3)")
+            for k in ("cost", "q", "p", "lm"):
+                check(np.array_equal(run[k], r0[k]),
+                      f"{what}: rank {r}'s {k} differs from rank 0's")
+            check(np.array_equal(run["chunk"], runs[r % tp]["chunk"]),
+                  f"{what}: rank {r}'s chunk differs from its dp replica's")
+            want = outs[r][f"step_{flat}"]["counts"]
+            check(run["counts"] == want, f"{what}: rank {r} launched "
+                  f"{run['counts']}, the flat bank {want}")
+            held = {k: run["counts"][k] for k in run["held"]}
+            check(run["held"] == held and set(held) == {"seg_reduce",
+                                                        "seg_broadcast"},
+                  f"{what}: rank {r} held {run['held']} calls of a step "
+                  f"that launched {run['counts']}")
+        check(np.array_equal(np.concatenate(
+            [runs[t]["chunk"] for t in range(tp)])[:M], r0["lm"]),
+              f"{what}: gather_landmarks is not the chunks in order")
+        rel = abs(r0["cost"] - local["cost"]) / abs(local["cost"])
+        gap = max(float(np.abs(r0[k] - local[k]).max())
+                  for k in ("q", "p", "lm"))
+        check(rel <= 1e-7 and gap <= 1e-6,
+              f"{what}: cost {r0['cost']!r} vs a local LM iteration's "
+              f"{local['cost']!r} (rel {rel:.3e}, rtol 1e-7); states "
+              f"{gap:.3e} apart (limit 1e-6)")
+        c = r0["counts"]
+        mem = ", ".join(f"rank {r} {run['lm_bytes']:,} B landmark-side, "
+                        f"peak {run['peak'] / 2**20:.1f} MiB"
+                        for r, run in enumerate(runs))
+        print(f"dist_lm_step: {world} gloo ranks, ({dp}, {tp}) mesh, the "
+              f"headline problem at f64 (10,000 landmarks, {mt:,} rows a "
+              f"rank, {r0['bank']:,} observation slots a rank): cost "
+              f"{r0['cost']:.12e}, a local LM iteration {local['cost']:.12e} "
+              f"(rel {rel:.3e}, rtol 1e-7), states {gap:.3e} apart; "
+              f"{c['seg_reduce']} reduce and {c['seg_broadcast']} broadcast "
+              f"launches per rank (the flat bank's), held to the plain "
+              f"versions bit for bit; ranks equal bit for bit, dp replicas "
+              f"of a chunk too; {mem} | {smi}")
+
+
 def _check_pose_graph(outs, world, smi):
     r0 = outs[0]
     _same_on_ranks(f"dist_pose_graph {world}", outs, ("pg_trace", "pg_p"))
@@ -4201,7 +4294,7 @@ def _check_pose_graph(outs, world, smi):
 def phase_distributed(mf_costs, dev, smi):
     """The distributed phases: dist_ba at 1 (NCCL), 2 and 4 ranks (gloo);
     at 2 ranks also dist_ba f64, dist_lm_step, dist_vio, dist_pose_graph
-    and multi_match; at 4 dist_pose_graph. ``mf_costs``: the single-device
+    and multi_match; at 4 dist_lm_step and dist_pose_graph. ``mf_costs``: the single-device
     matrix-free headline solve's costs on the card."""
     problem, state = bench_problem.make_problem(device=dev)
     cpu_dev = torch.device("cpu")
@@ -4227,6 +4320,8 @@ def phase_distributed(mf_costs, dev, smi):
             rates[world] = _check_dist_ba(outs, world, refs, smi)
             if world == 2:
                 _check_group2(outs, smi)
+            if "dist_lm_step" in cases:
+                _check_lm_step(outs, world, smi)
             if "dist_pose_graph" in cases:
                 _check_pose_graph(outs, world, smi)
     print("dist_ba: LM iterations/s per rank, ranks sharing one card: "

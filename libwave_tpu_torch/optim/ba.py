@@ -10,7 +10,10 @@ retraction, with a trust-region lambda update on cost decrease.
 ``axis_name`` (a ``parallel.mesh.Axis``) runs one rank's share of a sharded
 solve (``parallel.dist_ba``): the rank's bank is a contiguous pose block
 (pose-ELL) or a slice of a flat bank, the state and the LM loop are
-replicated, the reduced system is solved by matrix-free PCG.
+replicated, the reduced system is solved by matrix-free PCG. A
+``parallel.mesh.Sharding`` in its place: the flat bank and the landmark
+state are the rank's chunk of landmark rows (the one-step's ``tp``), and a
+scalar over landmark rows is agreed over the ranks of the other chunks.
 
 The reference's ``lax.scan`` over LM iterations is a Python loop of fixed
 length here. Acceptance, convergence and lambda stay 0-d tensors updated
@@ -281,7 +284,7 @@ def ba_cost(problem: BAProblem, state: BAState,
         problem.weight * (~valid).to(r.dtype)
     )
     if axis_name is not None:
-        c = axis_name.psum(c)
+        c = schur.pose_axis(axis_name).psum(c)
     c = c + pose_graph.pose_graph_cost(
         state.q, state.p, problem.between, problem.priors, windows
     )
@@ -452,7 +455,11 @@ def _lm_iteration(problem: BAProblem, cfg: BAConfig, carry,
     new_cost = ba_cost(problem, new_state, cfg.huber_delta, axis_name,
                        windows.count)
     total = sums(windows.count)
-    step_ok = torch.isfinite(total(dx_pose)) & torch.isfinite(total(dx_lm))
+    lm_total = total(dx_lm)
+    chunk = getattr(axis_name, "chunk", None)
+    if chunk is not None:  # landmark chunks: one rank of each adds its own
+        lm_total = chunk.psum(lm_total)
+    step_ok = torch.isfinite(total(dx_pose)) & torch.isfinite(lm_total)
     accept = (new_cost < cost) & ~converged & torch.isfinite(new_cost) & step_ok
     decrease = cost - new_cost
     converged = converged | (

@@ -33,7 +33,12 @@ bank covers a contiguous block of ``N / axis.size`` poses; landmark-side
 sums psum over the axis, the local pose block all_gathers. Flat (the
 port's counterpart of the reference's GSPMD step, which has no PyTorch
 form): the bank is any slice of a pose-sorted flat bank with global pose
-ids, and both sides psum.
+ids, and both sides psum. Flat with landmark chunks (``axis_name`` a
+:class:`libwave_tpu_torch.parallel.mesh.Sharding`): the rank's bank holds
+only observations of its chunk of landmark rows, with chunk-local ids, and
+every landmark-side quantity is the chunk's; landmark-side sums psum over
+the ranks of that chunk (``lm``), pose-side sums over every rank
+(``pose``).
 """
 
 from __future__ import annotations
@@ -332,10 +337,11 @@ class SchurBlocks(NamedTuple):
     ``C/ci/cj`` hold pose-pose off-diagonal couplings from pose-graph
     factors: H[ci, cj] += C, H[cj, ci] += C^T (empty banks are zero-length).
 
-    ``axis_name`` (an ``Axis`` or None): sharded blocks (see the module
-    docstring); W, pose_idx, lm_idx and lm_order are this rank's bank, the
-    rest global and replicated, pose-graph couplings evaluated on every
-    rank.
+    ``axis_name`` (an ``Axis``, a ``Sharding`` or None): sharded blocks
+    (see the module docstring); W, pose_idx, lm_idx and lm_order are this
+    rank's bank, the rest global and replicated (under a ``Sharding`` the
+    landmark-side Hll_inv and bl are the rank's chunk's), pose-graph
+    couplings evaluated on every rank.
     """
 
     Hpp: torch.Tensor  # (N, D, D) pose diagonal blocks (damped)
@@ -351,7 +357,7 @@ class SchurBlocks(NamedTuple):
     C: torch.Tensor  # (F, D, D) pose-pose cross blocks
     ci: torch.Tensor  # (F,)
     cj: torch.Tensor  # (F,)
-    axis_name: object = None  # parallel.mesh.Axis | None: sharded blocks
+    axis_name: object = None  # Axis | Sharding | None: sharded blocks
 
 
 class Window(NamedTuple):
@@ -398,16 +404,31 @@ def _psum(x, axis):
     return x if axis is None else axis.psum(x)
 
 
+def pose_axis(axis):
+    """The axis that pose-side sums and the cost reduce over: ``axis``
+    itself (an ``Axis`` or None), or a ``Sharding``'s ``pose``."""
+    return getattr(axis, "pose", axis)
+
+
+def _lm_axis(axis):
+    """The axis that landmark-side sums reduce over (a ``Sharding``'s
+    ``lm``: the ranks that hold the same landmark chunk)."""
+    return getattr(axis, "lm", axis)
+
+
 def _lm_sums(vals, lm_order, axis):
     """Reduce (C, K)/(C, N, Pmax) by landmark into (C, M). Sharded: each
-    rank reduces its bank (the reduce kernel), the partials psum."""
+    rank reduces its bank (the reduce kernel), the partials psum over the
+    landmark axis."""
     out = ell_seg_reduce(vals.reshape(vals.shape[0], -1), lm_order)
-    return _psum(out, axis)
+    return _psum(out, _lm_axis(axis))
 
 
 def _pose_sums(vals, ell, pose_idx, num_poses, axis):
     """Reduce by pose into (C, N): dense slot sum (ELL) or segment sum.
-    Sharded: the local (C, Nb) ELL block all_gathers; flat partials psum."""
+    Sharded: the local (C, Nb) ELL block all_gathers; flat partials psum
+    (over every rank)."""
+    axis = pose_axis(axis)
     if ell is not None:
         nb = num_poses if axis is None else num_poses // axis.size
         out = torch.sum(vals.reshape(vals.shape[0], nb, -1), dim=-1)
@@ -461,7 +482,10 @@ def build_normal_equations(
     ``axis_name`` (a ``parallel.mesh.Axis``): the inputs are this rank's
     bank; with ``ell`` a contiguous block of ``num_poses / axis.size``
     poses whose pose-side sums all_gather, flat a slice of the bank with
-    global pose ids whose pose-side sums psum; landmark-side sums psum.
+    global pose ids whose pose-side sums psum; landmark-side sums psum. A
+    ``parallel.mesh.Sharding`` (flat only): ``lm_idx`` and
+    ``num_landmarks`` are the rank's chunk's, the landmark-side sums psum
+    over its ``lm`` axis and the pose-side sums over its ``pose`` axis.
     ``extra_Hpp``/``extra_bp``/``couplings`` and ``free_pose`` are global
     and replicated, added once after the collectives.
     """
@@ -517,7 +541,7 @@ def build_normal_equations(
     bl = _lm_sums(bl_k, lm_order, axis)  # (3, M)
 
     if ell is not None:
-        nb = num_poses if axis is None else num_poses // axis.size
+        nb = num_poses if axis is None else num_poses // pose_axis(axis).size
         W = W.reshape(Dj * 3, nb, -1)  # matvec broadcasting layout
 
     if sum_dtype is not None:
@@ -578,6 +602,7 @@ def local_pose_block(x, num_poses: int, axis_name):
     None."""
     if axis_name is None:
         return x, num_poses
+    axis_name = pose_axis(axis_name)
     nb = num_poses // axis_name.size
     lo = axis_name.index * nb
     return x[lo:lo + nb], nb

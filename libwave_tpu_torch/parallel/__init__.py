@@ -4,8 +4,8 @@ The JAX package expresses parallelism over a ``jax.sharding.Mesh``; the
 port over a ``torch.distributed`` process group, one process per rank:
 
 - ``dp`` axis: observation and factor banks sharded across ranks;
-- ``tp`` axis: the map state's axis (the port keeps landmark rows
-  replicated: a memory difference, not a result difference);
+- ``tp`` axis: the map state's axis (the one-step distributed LM holds
+  one chunk of landmark rows per ``tp`` rank);
 - collectives (psum for normal-equation reductions, all_gather for pose
   blocks, ppermute for pose-graph halos) are explicit calls on a mesh
   :class:`~libwave_tpu_torch.parallel.mesh.Axis`, over NCCL between cards
@@ -16,6 +16,7 @@ from libwave_tpu_torch.parallel.mesh import make_mesh, MeshConfig  # noqa: F401
 from libwave_tpu_torch.parallel.dist_ba import (  # noqa: F401
     shard_ba_problem,
     distributed_lm_step,
+    gather_landmarks,
     partition_ba_problem,
     solve_ba_sharded,
 )

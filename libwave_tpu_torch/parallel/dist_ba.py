@@ -16,12 +16,14 @@ Port of ``libwave_tpu.parallel.dist_ba``. Two paths, as in the reference:
    bit-identical states.
 
 2. **Flat one-step** (:func:`shard_ba_problem` + :func:`distributed_lm_step`).
-   The reference annotates shardings and lets GSPMD insert collectives;
-   PyTorch has no GSPMD, so the port splits the flat observation bank over
-   every rank of the mesh and psums both sides of the normal equations
-   explicitly. Landmark rows stay replicated (padded to a multiple of tp,
-   as the reference pads its tp-sharded landmarks): that costs each rank
-   the whole landmark state in memory and changes no result.
+   The reference annotates shardings (observations over ``dp``, landmark
+   rows over ``tp``) and lets GSPMD insert collectives; PyTorch has no
+   GSPMD, so the port partitions on the host and reduces explicitly. Rank
+   ``(d, t)`` holds the observations of dp block ``d`` whose landmark lies
+   in chunk ``t`` and only that chunk of landmark rows; landmark-side sums
+   psum over ``dp`` (the ranks of one chunk), pose-side sums and the cost
+   over the whole mesh (:class:`~libwave_tpu_torch.parallel.mesh.
+   Sharding`). :func:`gather_landmarks` assembles the whole map.
 
 The reference caches a ``jit(shard_map)`` executable per configuration;
 PyTorch runs eagerly and has nothing to cache.
@@ -43,7 +45,7 @@ from libwave_tpu_torch.optim.ba import (
     ba_cost,
     solve_ba,
 )
-from libwave_tpu_torch.parallel.mesh import Axis, Mesh
+from libwave_tpu_torch.parallel.mesh import Axis, Mesh, Sharding
 from libwave_tpu_torch.utils.device import resolve
 from libwave_tpu_torch.utils.precision import f32_matmuls
 
@@ -211,64 +213,103 @@ def solve_ba_sharded(
 
 
 class BAShard(NamedTuple):
-    """This rank's slice of a flat observation bank (:func:`shard_ba_problem`)
-    and the mesh axis that spans every rank: the port's counterpart of a
-    problem placed on a mesh by sharding annotations."""
+    """This rank's share of a flat observation bank (:func:`shard_ba_problem`),
+    the port's counterpart of a problem placed on a mesh by sharding
+    annotations.
+
+    Layout on a ``(dp, tp)`` mesh, rank ``(d, t)``: with ``Mt = ceil(M /
+    tp)``, the rank owns the observations of the d-th of ``dp`` contiguous
+    slices of the pose-sorted bank whose landmark lies in rows ``[t*Mt,
+    (t+1)*Mt)``, so every observation has one owner. ``lm_idx`` is local to
+    the chunk. Every rank's list is padded to one common length with
+    weight-0 rows at the last pose (``pose_idx`` stays non-decreasing) and
+    local landmark 0. Poses, intrinsics and pose-graph banks are
+    replicated. ``axes`` says what each sum reduces over."""
 
     problem: BAProblem
-    axis: Axis
+    axes: Sharding
 
 
-def _pad_rows(x, multiple, fill=0):
-    pad = (-x.shape[0]) % multiple
+def _pad_to(x, n, fill=0):
+    """``x`` (K, ...) padded with rows of ``fill`` to length ``n``."""
+    pad = n - x.shape[0]
     if pad == 0:
         return x
     return torch.cat([x, x.new_full((pad,) + x.shape[1:], fill)])
 
 
+def _mesh_axes(mesh: Mesh) -> Sharding:
+    """What each sum of the one-step reduces over on ``mesh``. Without a
+    tp split, landmark-side sums reduce over the whole mesh, as pose-side
+    ones do."""
+    whole = mesh.axis(tuple(mesh.axis_names))
+    if mesh.shape.get("tp", 1) == 1:
+        return Sharding(whole, whole)
+    if tuple(mesh.axis_names) != ("dp", "tp"):
+        raise ValueError(f"a tp split needs a ('dp', 'tp') mesh, not "
+                         f"{mesh.axis_names}")
+    return Sharding(whole, mesh.axis("dp"), mesh.axis("tp"))
+
+
 def shard_ba_problem(problem: BAProblem, state: BAState, mesh: Mesh):
-    """Split a problem's observation bank over every rank of ``mesh``.
+    """Split a problem over ``mesh``: observations over ``dp`` and
+    landmark rows over ``tp`` (the layout of :class:`BAShard`). The ELL
+    layout is dropped. A ``tp`` that does not divide the landmark count
+    pads the last chunk with zero rows; an unobserved row solves to a zero
+    step.
 
-    - observations: the flat (pose-sorted) bank padded to a multiple of the
-      mesh size with weight-0 rows pointing at the LAST pose (pose_idx
-      stays non-decreasing) and landmark 0, then cut into contiguous
-      slices, one per rank; the ELL layout is dropped;
-    - landmarks: padded with zero rows to a multiple of tp, replicated;
-    - poses, intrinsics, pose-graph factors: replicated.
-
-    Returns ``(BAShard, state)`` on ``mesh.device``."""
-    names = tuple(mesh.axis_names)
-    axis = mesh.axis(names)
-    dev = mesh.device
-    R = axis.size
-    last = problem.free_pose.shape[0] - 1
-    bank = dict(
-        pose_idx=_pad_rows(problem.pose_idx, R, last),
-        lm_idx=_pad_rows(problem.lm_idx, R),
-        uv=_pad_rows(problem.uv, R),
-        weight=_pad_rows(problem.weight, R),
-    )
-    kb = bank["pose_idx"].shape[0] // R
-    lo = axis.index * kb
-    local = to_device(problem._replace(ell=None, bands=None, **{
-        k: v[lo:lo + kb] for k, v in bank.items()}), dev)
+    Returns ``(BAShard, state)`` on ``mesh.device``: ``state.lm`` is the
+    rank's chunk, ``(ceil(M / tp), 3)``; ``q`` and ``p`` are whole."""
+    axes = _mesh_axes(mesh)
     tp = mesh.shape.get("tp", 1)
-    state = BAState(q=state.q.to(dev), p=state.p.to(dev),
-                    lm=_pad_rows(state.lm, tp).to(dev))
-    return BAShard(local, axis), state
+    d, t = divmod(axes.pose.index, tp)  # tp innermost
+    n_dp = axes.pose.size // tp
+    K = problem.pose_idx.shape[0]
+    M = state.lm.shape[0]
+    mt = -(-M // tp)
+    kb = max(-(-K // n_dp), 1)
+    # owner of every observation: (dp block, landmark chunk)
+    lm = schur._host(problem.lm_idx).astype(np.int64)
+    owner = (np.arange(K) // kb) * tp + lm // mt
+    width = max(int(np.bincount(owner, minlength=n_dp * tp).max()), 1)
+    rows = torch.as_tensor(np.flatnonzero(owner == d * tp + t),
+                           device=problem.pose_idx.device)
+    last = problem.free_pose.shape[0] - 1
+    local = problem._replace(
+        ell=None, bands=None,
+        pose_idx=_pad_to(problem.pose_idx[rows], width, last),
+        lm_idx=_pad_to(problem.lm_idx[rows] - t * mt, width),
+        uv=_pad_to(problem.uv[rows], width),
+        weight=_pad_to(problem.weight[rows], width),
+    )
+    chunk = _pad_to(state.lm, tp * mt)[t * mt:(t + 1) * mt]
+    dev = mesh.device
+    state = BAState(q=state.q.to(dev), p=state.p.to(dev), lm=chunk.to(dev))
+    return BAShard(to_device(local, dev), axes), state
+
+
+def gather_landmarks(state: BAState, mesh: Mesh, M: int) -> torch.Tensor:
+    """The whole (M, 3) landmark map from the ranks' chunks of a
+    :func:`distributed_lm_step` state: an all_gather over ``tp``, trimmed
+    of the padding rows. Every rank of ``tp`` must call it."""
+    if mesh.shape.get("tp", 1) == 1:
+        return state.lm[:M]
+    return mesh.axis("tp").all_gather(state.lm)[:M]
 
 
 @f32_matmuls
 def distributed_lm_step(problem: BAShard, state: BAState, cfg: BAConfig,
                         damping: float = 1e-4):
     """One LM iteration on a problem split by :func:`shard_ba_problem`:
-    every rank linearizes its slice, the normal equations' pose- and
-    landmark-side sums psum over the mesh, and the replicated PCG and
-    step follow. Returns ``(state, cost)``, the same on every rank."""
-    local, axis = problem
+    every rank linearizes its share, the normal equations' landmark-side
+    sums psum over the ranks of its chunk and the pose-side sums over the
+    mesh, and the replicated PCG and step follow. Returns ``(state,
+    cost)``: the cost, poses and accept/reject decision are the same on
+    every rank, ``state.lm`` is the rank's chunk of landmark rows."""
+    local, axes = problem
     lam = torch.full((), damping, dtype=state.p.dtype, device=state.p.device)
-    cost = ba_cost(local, state, cfg.huber_delta, axis)
+    cost = ba_cost(local, state, cfg.huber_delta, axes)
     carry = (state, lam, cost,
              torch.zeros((), dtype=torch.bool, device=state.p.device))
-    (new_state, _, new_cost, _), _ = _lm_iteration(local, cfg, carry, axis)
+    (new_state, _, new_cost, _), _ = _lm_iteration(local, cfg, carry, axes)
     return new_state, new_cost

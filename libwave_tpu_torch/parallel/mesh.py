@@ -22,6 +22,7 @@ from __future__ import annotations
 
 import dataclasses
 import os
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -116,6 +117,19 @@ class Axis:
         if not self.live:
             return x
         return self.all_gather(x[None])[src[self.index]]
+
+
+class Sharding(NamedTuple):
+    """The reduction axes of blocks whose landmark rows are cut into
+    chunks (the one-step's ``tp`` sharding): pose-side sums and the cost
+    reduce over ``pose`` (every rank), landmark-side sums over ``lm`` (the
+    ranks that hold the same chunk), and a scalar over landmark rows over
+    ``chunk`` (one rank of each chunk; None when there is one chunk). The
+    solvers take a plain :class:`Axis` as all of these at once."""
+
+    pose: Axis
+    lm: Axis
+    chunk: Axis | None = None
 
 
 class Mesh:

@@ -1,5 +1,5 @@
 """Angle wrapping (port of ``libwave_tpu.utils.angles``): ``wrap_to_pi``
-maps any angle into (-pi, pi], ``wrap_to_two_pi`` into [0, 2*pi).
+maps any angle into [-pi, pi), ``wrap_to_two_pi`` into [0, 2*pi).
 Elementwise over any shape, on the input's device."""
 
 import math
@@ -12,11 +12,12 @@ __all__ = ["wrap_to_pi", "wrap_to_two_pi"]
 
 
 def wrap_to_pi(theta):
-    """Wrap angle(s) to (-pi, pi]: pi stays pi, -pi becomes pi (the
-    reference's stated interval; its code sends both to -pi)."""
+    """Wrap angle(s) to [-pi, pi): pi and -pi both become -pi. This is
+    what the reference's code computes; its docstring states (-pi, pi],
+    which its code does not give (a fault of the reference, kept)."""
     theta = host_or_tensor(theta)
     two_pi = 2.0 * math.pi
-    return theta + two_pi * torch.floor((math.pi - theta) / two_pi)
+    return theta - two_pi * torch.floor((theta + math.pi) / two_pi)
 
 
 def wrap_to_two_pi(theta):

@@ -7,7 +7,11 @@ one run per module, read by every case). Same problem (the JAX package's
 ``ba_from_dataset`` with odometry, priors and Huber, f64), same
 partitions: the sharded solves agree to 1e-9 (the two packages sum the
 landmark runs in other orders; nothing else differs); the one-step
-distributed LM iteration equals a local iteration to rtol 1e-7."""
+distributed LM iteration equals a local iteration to rtol 1e-7. With
+landmark rows split over ``tp`` (a (1, 2) mesh on the same 2 ranks, a
+(2, 2) mesh on 4 more), the one-step equals a local iteration and the
+JAX package's step on a (2, 2) sub-mesh to the JAX test's own bounds
+(``tests/test_parallel.py``: cost rtol 1e-7, states atol 1e-8)."""
 
 import jax
 import jax.numpy as jnp
@@ -29,8 +33,10 @@ from libwave_tpu_torch.parallel import (
     MeshConfig,
     make_mesh,
     partition_ba_problem,
+    shard_ba_problem,
     solve_ba_sharded,
 )
+from libwave_tpu_torch.parallel.mesh import Axis, Mesh
 from torch_dist_run import run_ranks
 
 CPU = torch.device("cpu")
@@ -202,3 +208,142 @@ def test_dense_reduced_system_refuses_sharded_blocks(problem):
     blocks = ba._linearize_ba(tp, ts, 0.0, axis_name=Axis("dp", 1, 0))
     with pytest.raises(ValueError, match="sharded"):
         schur.dense_reduced_system(blocks)
+
+
+# ---------------------------------------------------------------------------
+# landmark rows sharded over tp in the one-step
+# ---------------------------------------------------------------------------
+
+MESHES = {"1x2": (1, 2), "2x2": (2, 2)}
+
+
+@pytest.fixture(scope="module")
+def ranks4(problem, tmp_path_factory):
+    jp, init = problem
+    return run_ranks("ba_step", 4, tmp_path_factory.mktemp("dist_ba_step"),
+                     _inputs(jp, init))
+
+
+@pytest.fixture(scope="module")
+def local_step(problem):
+    """One local LM iteration of the port: (state, cost)."""
+    jp, init = problem
+    tp, ts = interop.from_jax_numpy(jp, init, CPU)
+    cfg = ba.BAConfig(max_iterations=ITERS, cg_max_iters=CG,
+                      huber_delta=HUBER, solver="pcg")
+    lam = torch.tensor(1e-4, dtype=torch.float64)
+    carry = (ts, lam, ba.ba_cost(tp, ts, HUBER), torch.tensor(False))
+    (state, _, cost, _), _ = ba._lm_iteration(tp, cfg, carry)
+    return state, float(cost)
+
+
+@pytest.fixture(scope="module")
+def jax_step(problem):
+    """The JAX package's ``shard_ba_problem`` + ``distributed_lm_step`` on
+    a (2, 2) sub-mesh: (state, cost)."""
+    jp, init = problem
+    mesh = jpar.make_mesh(jpar.MeshConfig(dp=2, tp=2),
+                          devices=jax.devices()[:4])
+    sp, ss = jpar.shard_ba_problem(*jax.tree.map(jnp.asarray, (jp, init)),
+                                   mesh)
+    state, cost = jpar.distributed_lm_step(sp, ss, _jcfg())
+    return jax.tree.map(np.asarray, state), float(cost)
+
+
+@pytest.fixture(scope="module", params=sorted(MESHES))
+def tp_step(request):
+    """(mesh shape, the port's ranks' results on it)."""
+    dp, tp = MESHES[request.param]
+    return (dp, tp), request.getfixturevalue(
+        "ranks4" if dp * tp == 4 else "ranks")
+
+
+def test_lm_step_tp_matches_local_and_jax(local_step, jax_step, tp_step):
+    """The one-step with landmark rows over tp against a local LM iteration
+    of the port and the JAX package's step on a (dp, tp) mesh."""
+    _, outs = tp_step
+    jstate, jcost = jax_step
+    local, cost = local_step
+    M = local.lm.shape[0]
+    r = outs[0]
+    for ref in (cost, jcost):
+        np.testing.assert_allclose(float(r["tp_cost"]), ref, rtol=1e-7)
+    for want in (local.lm.numpy(), jstate.lm[:M]):
+        np.testing.assert_allclose(r["tp_lm"], want, rtol=0, atol=1e-8)
+    for f in ("q", "p"):
+        for want in (getattr(local, f).numpy(), getattr(jstate, f)):
+            np.testing.assert_allclose(r[f"tp_{f}"], want, rtol=0,
+                                       atol=1e-8, err_msg=f)
+
+
+def test_lm_step_tp_layout(problem, tp_step):
+    """Each rank holds ceil(M / tp) landmark rows (its chunk, gathered by
+    rank); the poses and the cost are the same bits on every rank, a chunk
+    the same bits on its dp replicas; ``gather_landmarks`` gives back the
+    M rows, the chunks in order, on every rank."""
+    (dp, tp), outs = tp_step
+    M = problem[1].lm.shape[0]
+    mt = -(-M // tp)
+    for k in ("tp_q", "tp_p", "tp_cost", "tp_lm", "tp_chunks"):
+        for o in outs[1:]:
+            np.testing.assert_array_equal(o[k], outs[0][k], err_msg=k)
+    r0 = outs[0]
+    R = dp * tp
+    np.testing.assert_array_equal(
+        r0["tp_index"], np.stack([np.arange(R) // tp, np.arange(R) % tp], 1))
+    chunks = r0["tp_chunks"]
+    assert chunks.shape == (R, mt, 3) and r0["tp_lm"].shape == (M, 3)
+    for r in range(tp, R):  # dp replica of chunk r % tp
+        np.testing.assert_array_equal(chunks[r], chunks[r % tp])
+    np.testing.assert_array_equal(
+        np.concatenate(list(chunks[:tp]))[:M], r0["tp_lm"])
+
+
+def _rank_mesh(dp, tp, d, t):
+    """Rank (d, t)'s view of a (dp, tp) mesh, for the host partition only
+    (its collectives are never called)."""
+    axes = {"dp": Axis("dp", dp, d, live=False),
+            "tp": Axis("tp", tp, t, live=False),
+            ("dp", "tp"): Axis(("dp", "tp"), dp * tp, d * tp + t,
+                               live=False)}
+    return Mesh(np.arange(dp * tp).reshape(dp, tp), ("dp", "tp"), CPU,
+                None, axes)
+
+
+@pytest.mark.parametrize("shape", [(2, 2), (1, 3), (3, 2)])
+def test_shard_partition_owns_each_observation_once(problem, shape):
+    """``shard_ba_problem``'s host partition: rank (d, t) holds, in bank
+    order, the observations of the d-th contiguous slice whose landmark
+    lies in chunk t, with chunk-local ids, so every observation has one
+    owner; one common list length, padded with weight-0 rows at the last
+    pose and local landmark 0; the rank's chunk of landmark rows, zero rows
+    past M (40 landmarks: tp = 3 pads)."""
+    dp, tp = shape
+    jp, init = problem
+    prob, st = interop.from_jax_numpy(jp, init, CPU)
+    K, M, N = prob.pose_idx.shape[0], st.lm.shape[0], st.q.shape[0]
+    mt, kb = -(-M // tp), -(-K // dp)
+    lm_rows = torch.cat([st.lm, st.lm.new_zeros((tp * mt - M, 3))])
+    owned, widths = 0, set()
+    for d in range(dp):
+        for t in range(tp):
+            shard, s = shard_ba_problem(prob, st, _rank_mesh(dp, tp, d, t))
+            loc = shard.problem
+            assert loc.ell is None
+            assert torch.equal(s.q, st.q) and torch.equal(s.p, st.p)
+            assert torch.equal(s.lm, lm_rows[t * mt:(t + 1) * mt])
+            widths.add(loc.pose_idx.shape[0])
+            assert bool((torch.diff(loc.pose_idx) >= 0).all())
+            rows = torch.arange(d * kb, min((d + 1) * kb, K))
+            rows = rows[prob.lm_idx[rows] // mt == t]
+            n = rows.shape[0]
+            owned += n
+            assert torch.equal(loc.pose_idx[:n], prob.pose_idx[rows])
+            assert torch.equal(loc.lm_idx[:n], prob.lm_idx[rows] - t * mt)
+            assert torch.equal(loc.uv[:n], prob.uv[rows])
+            assert torch.equal(loc.weight[:n], prob.weight[rows])
+            assert bool((loc.pose_idx[n:] == N - 1).all())
+            assert bool((loc.lm_idx[n:] == 0).all())
+            assert bool((loc.weight[n:] == 0).all())
+            assert bool((loc.uv[n:] == 0).all())
+    assert owned == K and len(widths) == 1

@@ -70,17 +70,19 @@ def test_wrap_to_pi_and_two_pi():
     np.testing.assert_allclose(
         angles.wrap_to_two_pi(torch.as_tensor(th)).numpy(),
         np.asarray(jangles.wrap_to_two_pi(th)), rtol=0, atol=1e-12)
-    # the half-open interval (-pi, pi] of the reference's docstring: +-pi
-    # and 3 pi map to pi. The JAX package's code maps them to -pi, against
-    # its docstring; the port follows the stated interval.
-    edge = torch.tensor([math.pi, -math.pi, 3 * math.pi],
-                        dtype=torch.float64)
-    assert torch.equal(angles.wrap_to_pi(edge),
-                       torch.full((3,), math.pi, dtype=torch.float64))
-    np.testing.assert_array_equal(np.asarray(jangles.wrap_to_pi(
-        edge.numpy())), -math.pi)
-    w = angles.wrap_to_pi(torch.linspace(-20, 20, 4001, dtype=torch.float64))
-    assert (w > -math.pi).all() and (w <= math.pi).all()
+    # the edges: the JAX package's code sends pi, -pi, 3 pi and -3 pi to
+    # -pi (its docstring says (-pi, pi]); the port computes the same bits
+    edge = np.array([math.pi, -math.pi, 3 * math.pi, -3 * math.pi,
+                     2 * math.pi])
+    sweep = np.linspace(-20, 20, 4001)
+    for x in (edge, sweep):
+        np.testing.assert_array_equal(
+            angles.wrap_to_pi(torch.as_tensor(x)).numpy(),
+            np.asarray(jangles.wrap_to_pi(jnp.asarray(x))))
+    np.testing.assert_array_equal(angles.wrap_to_pi(
+        torch.as_tensor(edge[:4])).numpy(), -math.pi)
+    w = angles.wrap_to_pi(torch.as_tensor(sweep))
+    assert (w >= -math.pi).all() and (w < math.pi).all()
 
 
 def test_csv_round_trips(tmp_path):

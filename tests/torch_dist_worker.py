@@ -24,6 +24,7 @@ from libwave_tpu_torch.parallel import (
     MultiHostConfig,
     distributed_lm_step,
     flatten_mesh,
+    gather_landmarks,
     initialize_multihost,
     make_host_mesh,
     make_mesh,
@@ -72,6 +73,21 @@ def ba_config(z):
                        huber_delta=float(z["huber"]) or None, solver="pcg")
 
 
+def one_step(problem, state, cfg, mesh, tag):
+    """``distributed_lm_step`` on ``mesh``, keyed ``{tag}_...``: the cost,
+    the poses and the gathered map, and every rank's chunk and (dp, tp)
+    index gathered in rank order (so every rank writes the same arrays
+    but its own cost and poses)."""
+    sharded, st = shard_ba_problem(problem, state, mesh)
+    step, cost = distributed_lm_step(sharded, st, cfg)
+    whole = mesh.axis(mesh.axis_names)
+    index = torch.tensor([[mesh.axis("dp").index, mesh.axis("tp").index]])
+    return {f"{tag}_cost": cost, f"{tag}_q": step.q, f"{tag}_p": step.p,
+            f"{tag}_lm": gather_landmarks(step, mesh, state.lm.shape[0]),
+            f"{tag}_chunks": whole.all_gather(step.lm[None]),
+            f"{tag}_index": whole.all_gather(index)}
+
+
 def case_ba(z, world):
     problem, state = ba_problem(z)
     cfg = ba_config(z)
@@ -81,10 +97,20 @@ def case_ba(z, world):
     sharded, st = shard_ba_problem(problem, state, mesh)
     step, step_cost = distributed_lm_step(sharded, st, cfg)
     multi, minfo = solve_ba_multihost(problem, state, cfg)
+    tp = one_step(problem, state, cfg,
+                  make_mesh(MeshConfig(dp=1, tp=world), device=CPU), "tp")
     return dict(q=out.q, p=out.p, lm=out.lm, costs=info["costs"],
                 initial_cost=info["initial_cost"],
                 final_cost=info["final_cost"], step_cost=step_cost,
-                step_p=step.p, step_lm=step.lm, multi_costs=minfo["costs"])
+                step_p=step.p, step_lm=step.lm, multi_costs=minfo["costs"],
+                **tp)
+
+
+def case_ba_step(z, world):
+    """The one-step distributed LM on a (world / 2, 2) mesh."""
+    problem, state = ba_problem(z)
+    mesh = make_mesh(MeshConfig(dp=world // 2, tp=2), device=CPU)
+    return one_step(problem, state, ba_config(z), mesh, "tp")
 
 
 def case_vio(z, world):
@@ -165,7 +191,7 @@ def case_mesh(z, world):
         flat_index=np.array(flat.axis("dp").index))
 
 
-CASES = {"ba": case_ba, "vio": case_vio, "pose_graph": case_pose_graph,
+CASES = {"ba": case_ba, "ba_step": case_ba_step, "vio": case_vio, "pose_graph": case_pose_graph,
          "match": case_match, "mesh": case_mesh}
 
 
