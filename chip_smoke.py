@@ -4391,7 +4391,7 @@ def utils_main(smi):
     and utils.trace.profile_trace naming it (the kernels are built: the
     parent's build phase left them in ``_build/``)."""
     from libwave_tpu_torch.utils.timing import Timer
-    from libwave_tpu_torch.utils.trace import annotate, profile_trace
+    from libwave_tpu_torch.utils.trace import profile_trace, span
 
     check(torch.cuda.is_available(), "utils: no CUDA device")
     dev = torch.device("cuda:0")
@@ -4417,7 +4417,7 @@ def utils_main(smi):
           f"utils: Timer {t_ms:.4f} ms vs CUDA events {ev_ms:.4f} ms")
     with tempfile.TemporaryDirectory() as tmp:
         with profile_trace(tmp) as prof:
-            with annotate("seg_reduce_calls"):
+            with span("seg_reduce_calls"):
                 for _ in range(5):
                     segmm.seg_reduce_sorted(vals, *ell)
             torch.cuda.synchronize()
@@ -4426,11 +4426,11 @@ def utils_main(smi):
     check("seg_reduce_sorted_kernel" in text,
           "utils: the profiler trace does not name the segment reduce kernel")
     check("seg_reduce_calls" in names,
-          "utils: the profiler does not list the annotated region")
+          "utils: the profiler does not list the span")
     print(f"utils: Timer {t_ms:.4f} ms vs CUDA events {ev_ms:.4f} ms over "
           f"{calls} segment reduces (6 x 480,000 -> 10,000; limit 5% + 0.05 "
           f"ms); profile_trace's trace.json names seg_reduce_sorted_kernel "
-          f"and the annotated region | {smi}")
+          f"and the span | {smi}")
 
 
 def _kernel_entry(name, source, replaces, n_launches, stats):

@@ -45,6 +45,7 @@ from libwave_tpu_torch.optim.reprojection import (
 from libwave_tpu_torch.ops import segmm
 from libwave_tpu_torch.utils.device import resolve
 from libwave_tpu_torch.utils.precision import f32_matmuls, sums
+from libwave_tpu_torch.utils.trace import SOLVE_SPAN, count, span
 
 
 class BAProblem(NamedTuple):
@@ -259,38 +260,39 @@ def ba_cost(problem: BAProblem, state: BAState,
     window's sums reduced on their own. ``axis_name``: the bank is this
     rank's share; its cost psums over the axis and the (replicated)
     pose-graph cost is added once."""
-    total = sums(windows)
-    if problem.ell is not None:
-        N = problem.free_pose.shape[0]
-        q, p, nb = _local_pose_view(state, N, axis_name)
-        r, valid = reprojection_residual_ell(
-            problem.K, q, p, state.lm,
-            problem.lm_idx.reshape(nb, -1),
-            problem.uv.T.reshape(2, nb, -1),
+    with span("ba.cost"):
+        total = sums(windows)
+        if problem.ell is not None:
+            N = problem.free_pose.shape[0]
+            q, p, nb = _local_pose_view(state, N, axis_name)
+            r, valid = reprojection_residual_ell(
+                problem.K, q, p, state.lm,
+                problem.lm_idx.reshape(nb, -1),
+                problem.uv.T.reshape(2, nb, -1),
+            )
+            r = r.reshape(2, -1)
+            valid = valid.reshape(-1)
+        else:
+            r, valid = reprojection_residual_cm(
+                problem.K, state.q, state.p, state.lm,
+                problem.pose_idx, problem.lm_idx, problem.uv.T,
+            )
+        sq = r[0] * r[0] + r[1] * r[1]
+        if huber_delta is None:
+            c = 0.5 * total(problem.weight * sq)
+        else:
+            c = total(problem.weight * _huber_rho(sq, huber_delta))
+        c = c + _CHEIRALITY_PENALTY * total(
+            problem.weight * (~valid).to(r.dtype)
         )
-        r = r.reshape(2, -1)
-        valid = valid.reshape(-1)
-    else:
-        r, valid = reprojection_residual_cm(
-            problem.K, state.q, state.p, state.lm,
-            problem.pose_idx, problem.lm_idx, problem.uv.T,
+        if axis_name is not None:
+            c = schur.pose_axis(axis_name).psum(c)
+        c = c + pose_graph.pose_graph_cost(
+            state.q, state.p, problem.between, problem.priors, windows
         )
-    sq = r[0] * r[0] + r[1] * r[1]
-    if huber_delta is None:
-        c = 0.5 * total(problem.weight * sq)
-    else:
-        c = total(problem.weight * _huber_rho(sq, huber_delta))
-    c = c + _CHEIRALITY_PENALTY * total(
-        problem.weight * (~valid).to(r.dtype)
-    )
-    if axis_name is not None:
-        c = schur.pose_axis(axis_name).psum(c)
-    c = c + pose_graph.pose_graph_cost(
-        state.q, state.p, problem.between, problem.priors, windows
-    )
-    if problem.prior_Lambda is not None:
-        c = c + _prior_cost(problem, state)
-    return c
+        if problem.prior_Lambda is not None:
+            c = c + _prior_cost(problem, state)
+        return c
 
 
 def _linearize_ba(problem: BAProblem, state: BAState, lam,
@@ -303,78 +305,79 @@ def _linearize_ba(problem: BAProblem, state: BAState, lam,
     ``lm_lam``: the landmarks' damping when it differs from the poses'
     (per pose and per landmark in the batched solve). ``axis_name``: the
     bank is this rank's share (sharded blocks)."""
-    N = problem.free_pose.shape[0]
-    M = state.lm.shape[0]
+    with span("ba.linearize"):
+        N = problem.free_pose.shape[0]
+        M = state.lm.shape[0]
 
-    if problem.ell is not None:
-        q_loc, p_loc, nb = _local_pose_view(state, N, axis_name)
-        r, J_pose, J_lm, valid = linearize_reprojection_ell(
-            problem.K, q_loc, p_loc, state.lm,
-            problem.lm_idx.reshape(nb, -1),
-            problem.uv.T.reshape(2, nb, -1),
-        )
-        w = problem.weight.reshape(nb, -1) * valid.to(r.dtype)
-    else:
-        r, J_pose, J_lm, valid = linearize_reprojection_cm(
-            problem.K, state.q, state.p, state.lm,
-            problem.pose_idx, problem.lm_idx, problem.uv.T,
-        )
-        w = problem.weight * valid.to(r.dtype)
-    if huber_delta is not None:
-        # IRLS weight rho'(r)/|r| = min(1, delta/|r|)
-        rn = torch.sqrt(torch.clamp(r[0] * r[0] + r[1] * r[1], min=1e-20))
-        w = w * torch.clamp(huber_delta / rn, max=1.0)
-
-    # pose-graph factor contributions (odometry between-factors + priors)
-    seg = schur._segment_sum0
-    extra_Hpp = None
-    extra_bp = None
-    couplings = None
-    if problem.between is not None:
-        rb, Ji, Jj = pose_graph.linearize_between(
-            problem.between, state.q, state.p
-        )
-        JiT = Ji.mT
-        JjT = Jj.mT
-        bi, bj = problem.between.i, problem.between.j
-        extra_Hpp = seg(JiT @ Ji, bi, N) + seg(JjT @ Jj, bj, N)
-        extra_bp = seg(
-            -torch.einsum("fij,fj->fi", JiT, rb), bi, N
-        ) + seg(-torch.einsum("fij,fj->fi", JjT, rb), bj, N)
-        couplings = (JiT @ Jj, bi, bj)
-    if problem.priors is not None:
-        rp, Jp = pose_graph.linearize_prior(problem.priors, state.q, state.p)
-        JpT = Jp.mT
-        pi = problem.priors.i
-        add_H = seg(JpT @ Jp, pi, N)
-        add_b = seg(-torch.einsum("fij,fj->fi", JpT, rp), pi, N)
-        extra_Hpp = add_H if extra_Hpp is None else extra_Hpp + add_H
-        extra_bp = add_b if extra_bp is None else extra_bp + add_b
-
-    if problem.prior_Lambda is not None:
-        O = problem.prior_q.shape[0]
-        Hp_add, (Cp, cpi, cpj), bp_add = _prior_terms(problem, state)
-        if extra_Hpp is None:
-            extra_Hpp = r.new_zeros((N, 6, 6))
-            extra_bp = r.new_zeros((N, 6))
-        extra_Hpp = torch.cat([extra_Hpp[:O] + Hp_add, extra_Hpp[O:]])
-        extra_bp = torch.cat([extra_bp[:O] + bp_add, extra_bp[O:]])
-        if couplings is None:
-            couplings = (Cp, cpi, cpj)
-        else:
-            C0, ci0, cj0 = couplings
-            couplings = (
-                torch.cat([C0, Cp]),
-                torch.cat([ci0, cpi]),
-                torch.cat([cj0, cpj]),
+        if problem.ell is not None:
+            q_loc, p_loc, nb = _local_pose_view(state, N, axis_name)
+            r, J_pose, J_lm, valid = linearize_reprojection_ell(
+                problem.K, q_loc, p_loc, state.lm,
+                problem.lm_idx.reshape(nb, -1),
+                problem.uv.T.reshape(2, nb, -1),
             )
+            w = problem.weight.reshape(nb, -1) * valid.to(r.dtype)
+        else:
+            r, J_pose, J_lm, valid = linearize_reprojection_cm(
+                problem.K, state.q, state.p, state.lm,
+                problem.pose_idx, problem.lm_idx, problem.uv.T,
+            )
+            w = problem.weight * valid.to(r.dtype)
+        if huber_delta is not None:
+            # IRLS weight rho'(r)/|r| = min(1, delta/|r|)
+            rn = torch.sqrt(torch.clamp(r[0] * r[0] + r[1] * r[1], min=1e-20))
+            w = w * torch.clamp(huber_delta / rn, max=1.0)
 
-    return schur.build_normal_equations(
-        r, J_pose, J_lm, w, problem.pose_idx, problem.lm_idx,
-        N, M, lam, problem.free_pose,
-        extra_Hpp=extra_Hpp, extra_bp=extra_bp, couplings=couplings,
-        ell=problem.ell, axis_name=axis_name, lm_damping=lm_lam,
-    )
+        # pose-graph factor contributions (odometry between-factors + priors)
+        seg = schur._segment_sum0
+        extra_Hpp = None
+        extra_bp = None
+        couplings = None
+        if problem.between is not None:
+            rb, Ji, Jj = pose_graph.linearize_between(
+                problem.between, state.q, state.p
+            )
+            JiT = Ji.mT
+            JjT = Jj.mT
+            bi, bj = problem.between.i, problem.between.j
+            extra_Hpp = seg(JiT @ Ji, bi, N) + seg(JjT @ Jj, bj, N)
+            extra_bp = seg(
+                -torch.einsum("fij,fj->fi", JiT, rb), bi, N
+            ) + seg(-torch.einsum("fij,fj->fi", JjT, rb), bj, N)
+            couplings = (JiT @ Jj, bi, bj)
+        if problem.priors is not None:
+            rp, Jp = pose_graph.linearize_prior(problem.priors, state.q, state.p)
+            JpT = Jp.mT
+            pi = problem.priors.i
+            add_H = seg(JpT @ Jp, pi, N)
+            add_b = seg(-torch.einsum("fij,fj->fi", JpT, rp), pi, N)
+            extra_Hpp = add_H if extra_Hpp is None else extra_Hpp + add_H
+            extra_bp = add_b if extra_bp is None else extra_bp + add_b
+
+        if problem.prior_Lambda is not None:
+            O = problem.prior_q.shape[0]
+            Hp_add, (Cp, cpi, cpj), bp_add = _prior_terms(problem, state)
+            if extra_Hpp is None:
+                extra_Hpp = r.new_zeros((N, 6, 6))
+                extra_bp = r.new_zeros((N, 6))
+            extra_Hpp = torch.cat([extra_Hpp[:O] + Hp_add, extra_Hpp[O:]])
+            extra_bp = torch.cat([extra_bp[:O] + bp_add, extra_bp[O:]])
+            if couplings is None:
+                couplings = (Cp, cpi, cpj)
+            else:
+                C0, ci0, cj0 = couplings
+                couplings = (
+                    torch.cat([C0, Cp]),
+                    torch.cat([ci0, cpi]),
+                    torch.cat([cj0, cpj]),
+                )
+
+        return schur.build_normal_equations(
+            r, J_pose, J_lm, w, problem.pose_idx, problem.lm_idx,
+            N, M, lam, problem.free_pose,
+            extra_Hpp=extra_Hpp, extra_bp=extra_bp, couplings=couplings,
+            ell=problem.ell, axis_name=axis_name, lm_damping=lm_lam,
+        )
 
 
 @f32_matmuls
@@ -401,17 +404,18 @@ def _reduced_step(problem: BAProblem, cfg: BAConfig, blocks, rhs):
     if _use_dense_schur(cfg, N, 6, 6, M, itemsize, axis_name):
         return schur.dense_schur_solve(blocks, rhs), torch.zeros(
             (), dtype=torch.int32, device=rhs.device)
-    S4 = None
-    if _use_explicit_s(
-        cfg, N, 6, M, itemsize, problem.ell, axis_name, problem.bands,
-        device=rhs.device,
-    ):
-        S4 = schur.dense_reduced_system(
-            blocks, max_g_bytes=cfg.dense_max_g_bytes, bands=problem.bands,
+    with span("schur.pcg"):
+        S4 = None
+        if _use_explicit_s(
+            cfg, N, 6, M, itemsize, problem.ell, axis_name, problem.bands,
+            device=rhs.device,
+        ):
+            S4 = schur.dense_reduced_system(
+                blocks, max_g_bytes=cfg.dense_max_g_bytes, bands=problem.bands,
+            )
+        cg = schur.pcg(
+            blocks, rhs, max_iters=cfg.cg_max_iters, tol=cfg.cg_tol, S4=S4
         )
-    cg = schur.pcg(
-        blocks, rhs, max_iters=cfg.cg_max_iters, tol=cfg.cg_tol, S4=S4
-    )
     return cg.x, cg.iterations
 
 
@@ -454,33 +458,36 @@ def _lm_iteration(problem: BAProblem, cfg: BAConfig, carry,
     )
     new_cost = ba_cost(problem, new_state, cfg.huber_delta, axis_name,
                        windows.count)
-    total = sums(windows.count)
-    lm_total = total(dx_lm)
-    chunk = getattr(axis_name, "chunk", None)
-    if chunk is not None:  # landmark chunks: one rank of each adds its own
-        lm_total = chunk.psum(lm_total)
-    step_ok = torch.isfinite(total(dx_pose)) & torch.isfinite(lm_total)
-    accept = (new_cost < cost) & ~converged & torch.isfinite(new_cost) & step_ok
-    decrease = cost - new_cost
-    converged = converged | (
-        accept
-        & (decrease < cfg.relative_decrease_tol * cost
-           + cfg.absolute_decrease_tol)
-    )
-    keep = (windows.per_pose(accept),) * 2 + (
-        windows.per_landmark(accept)[..., None],)
-    state = BAState(*(torch.where(k, new, old)
-                      for k, new, old in zip(keep, new_state, state)))
-    cost = torch.where(accept, new_cost, cost)
-    lam = torch.where(
-        converged,
-        lam,
-        torch.clip(
-            torch.where(accept, lam * cfg.lambda_down, lam * cfg.lambda_up),
-            cfg.min_lambda,
-            cfg.max_lambda,
-        ),
-    )
+    with span("ba.update"):
+        total = sums(windows.count)
+        lm_total = total(dx_lm)
+        chunk = getattr(axis_name, "chunk", None)
+        if chunk is not None:  # landmark chunks: one rank of each adds its own
+            lm_total = chunk.psum(lm_total)
+        step_ok = torch.isfinite(total(dx_pose)) & torch.isfinite(lm_total)
+        accept = ((new_cost < cost) & ~converged & torch.isfinite(new_cost)
+                  & step_ok)
+        decrease = cost - new_cost
+        converged = converged | (
+            accept
+            & (decrease < cfg.relative_decrease_tol * cost
+               + cfg.absolute_decrease_tol)
+        )
+        keep = (windows.per_pose(accept),) * 2 + (
+            windows.per_landmark(accept)[..., None],)
+        state = BAState(*(torch.where(k, new, old)
+                          for k, new, old in zip(keep, new_state, state)))
+        cost = torch.where(accept, new_cost, cost)
+        lam = torch.where(
+            converged,
+            lam,
+            torch.clip(
+                torch.where(accept, lam * cfg.lambda_down,
+                            lam * cfg.lambda_up),
+                cfg.min_lambda,
+                cfg.max_lambda,
+            ),
+        )
     return (state, lam, cost, converged), (cost, accept, cg_iterations)
 
 
@@ -498,17 +505,22 @@ def solve_ba(problem: BAProblem, state: BAState, cfg: BAConfig = BAConfig(),
     replicated LM loop on the all-reduced cost and takes the same steps.
     """
     cfg.validate()
-    lam = torch.full((), cfg.init_lambda, dtype=state.p.dtype,
-                     device=state.p.device)
-    cost0 = ba_cost(problem, state, cfg.huber_delta, axis_name)
-    carry = (state, lam, cost0,
-             torch.zeros((), dtype=torch.bool, device=state.p.device))
-    costs, accepts, cg_iters = [], [], []
-    for _ in range(cfg.max_iterations):
-        carry, (c, a, it) = _lm_iteration(problem, cfg, carry, axis_name)
-        costs.append(c)
-        accepts.append(a)
-        cg_iters.append(it)
+    with span(SOLVE_SPAN, iterations=cfg.max_iterations,
+              cg_max_iters=cfg.cg_max_iters):
+        lam = torch.full((), cfg.init_lambda, dtype=state.p.dtype,
+                         device=state.p.device)
+        cost0 = ba_cost(problem, state, cfg.huber_delta, axis_name)
+        carry = (state, lam, cost0,
+                 torch.zeros((), dtype=torch.bool, device=state.p.device))
+        costs, accepts, cg_iters = [], [], []
+        for i in range(cfg.max_iterations):
+            with span("ba.iteration", i=i):
+                count("ba.lm_iterations")
+                carry, (c, a, it) = _lm_iteration(problem, cfg, carry,
+                                                  axis_name)
+            costs.append(c)
+            accepts.append(a)
+            cg_iters.append(it)
     state, lam, cost, _ = carry
     info = {
         "initial_cost": cost0,
@@ -674,17 +686,22 @@ def solve_ba_batched(problems, states, cfg: BAConfig = BAConfig()):
     problem, state, windows = _union(problems, states)
     B = windows.count
     dev = state.p.device
-    lam = torch.full((B,), cfg.init_lambda, dtype=state.p.dtype, device=dev)
-    cost0 = ba_cost(problem, state, cfg.huber_delta, windows=B)
-    carry = (state, lam, cost0, torch.zeros((B,), dtype=torch.bool,
-                                            device=dev))
-    costs, accepts, cg_iters = [], [], []
-    for _ in range(cfg.max_iterations):
-        carry, (c, a, it) = _lm_iteration(problem, cfg, carry,
-                                          windows=windows)
-        costs.append(c)
-        accepts.append(a)
-        cg_iters.append(it)
+    with span(SOLVE_SPAN, iterations=cfg.max_iterations,
+              cg_max_iters=cfg.cg_max_iters):
+        lam = torch.full((B,), cfg.init_lambda, dtype=state.p.dtype,
+                         device=dev)
+        cost0 = ba_cost(problem, state, cfg.huber_delta, windows=B)
+        carry = (state, lam, cost0, torch.zeros((B,), dtype=torch.bool,
+                                                device=dev))
+        costs, accepts, cg_iters = [], [], []
+        for i in range(cfg.max_iterations):
+            with span("ba.iteration", i=i):
+                count("ba.lm_iterations")
+                carry, (c, a, it) = _lm_iteration(problem, cfg, carry,
+                                                  windows=windows)
+            costs.append(c)
+            accepts.append(a)
+            cg_iters.append(it)
     state, lam, cost, _ = carry
     N, M = windows.poses, windows.landmarks
     out = BAState(q=state.q.reshape(B, N, 4), p=state.p.reshape(B, N, 3),

@@ -53,6 +53,7 @@ from libwave_tpu_torch.ops import segmm
 from libwave_tpu_torch.ops.segmm import EllLayout, dense_g_a_window
 from libwave_tpu_torch.utils.device import resolve
 from libwave_tpu_torch.utils.precision import f32_matmuls
+from libwave_tpu_torch.utils.trace import count, span
 
 
 def _host(x):
@@ -668,11 +669,12 @@ def schur_matvec(blocks: SchurBlocks, x: torch.Tensor) -> torch.Tensor:
 
 def schur_rhs(blocks: SchurBlocks) -> torch.Tensor:
     """b̃ = bp - U Hll^-1 bl."""
-    D = blocks.bp.shape[1]
-    y = sym3_matvec(blocks.Hll_inv, blocks.bl)  # (3, M)
-    yk = _gather_lm(blocks, y)
-    uy = _seg_pose(blocks, _w_apply(blocks.W, yk))  # (Dj, N)
-    return _project(blocks.bp - _pad_cols(uy.T, D), blocks.free_pose)
+    with span("schur.rhs"):
+        D = blocks.bp.shape[1]
+        y = sym3_matvec(blocks.Hll_inv, blocks.bl)  # (3, M)
+        yk = _gather_lm(blocks, y)
+        uy = _seg_pose(blocks, _w_apply(blocks.W, yk))  # (Dj, N)
+        return _project(blocks.bp - _pad_cols(uy.T, D), blocks.free_pose)
 
 
 def _schur_self_blocks(blocks: SchurBlocks) -> torch.Tensor:
@@ -974,8 +976,10 @@ def pcg(blocks: SchurBlocks, b, max_iters: int = 100, tol: float = 1e-8,
     thresh_sq = (tol * tol) * rr
     it = torch.zeros((), dtype=torch.int32, device=b.device)
     for _ in range(max_iters):
+        count("schur.cg_trips")
         live = rr > thresh_sq
-        Sp = matvec(p)
+        with span("schur.matvec"):
+            Sp = matvec(p)
         denom = _vdot(p, Sp)
         alpha = torch.where(
             live, rz / torch.where(denom == 0, 1.0, denom), 0.0
@@ -994,6 +998,7 @@ def pcg(blocks: SchurBlocks, b, max_iters: int = 100, tol: float = 1e-8,
 
 def back_substitute(blocks: SchurBlocks, dx_pose: torch.Tensor) -> torch.Tensor:
     """dx_lm = Hll^-1 (bl - U^T dx_pose). Returns (M, 3)."""
-    xk = _broadcast_pose(blocks, _project(dx_pose, blocks.free_pose))
-    utx = _seg_lm(blocks, _w_t_apply(blocks.W, xk))  # (3, M)
-    return sym3_matvec(blocks.Hll_inv, blocks.bl - utx).T
+    with span("schur.back_substitute"):
+        xk = _broadcast_pose(blocks, _project(dx_pose, blocks.free_pose))
+        utx = _seg_lm(blocks, _w_t_apply(blocks.W, xk))  # (3, M)
+        return sym3_matvec(blocks.Hll_inv, blocks.bl - utx).T

@@ -147,12 +147,10 @@ def test_timers():
 
 
 def test_counters_and_profile_trace(tmp_path):
-    c = trace.Counters.zeros("keypoints", "matches")
-    c = c.add(keypoints=torch.tensor(5, dtype=torch.int32), matches=2)
-    c = c.add(keypoints=torch.tensor(1, dtype=torch.int32))
-    assert c.as_floats() == {"keypoints": 6.0, "matches": 2.0}
+    # a span inside a profiler session, with no recording, is a profiler
+    # range of its name
     with trace.profile_trace(str(tmp_path / "prof")) as prof:
-        with trace.annotate("the_region"):
+        with trace.span("the_region"):
             torch.ones(64, 64) @ torch.ones(64, 64)
     names = {e.key for e in prof.key_averages()}
     assert "the_region" in names
