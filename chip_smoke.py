@@ -11,6 +11,7 @@ it imports no JAX. Phases, each reported on its own line:
    device is a failure, never a CPU run;
 2. build: compiles ``libwave_tpu_torch/csrc/segmm_g_a.cu``,
    ``libwave_tpu_torch/csrc/segmm_seg.cu``,
+   ``libwave_tpu_torch/csrc/schur_matvec.cu``,
    ``libwave_tpu_torch/csrc/hamming.cu`` and
    ``libwave_tpu_torch/csrc/table_designs.cu`` (the first table kernel and
    the tensor-core rate probe) for sm_90a, one nvcc each, started together,
@@ -60,14 +61,30 @@ it imports no JAX. Phases, each reported on its own line:
    same function (``index_add_`` into zeros; ``index_select`` on y padded
    with a zero column), each timed as device time;
 6. matrix_free: the 10-iteration headline solve with
-   ``explicit_s="never"`` (matrix-free PCG): exactly 23 reduces and 22
-   broadcasts per LM iteration (3 + 20 CG steps, 2 + 20) and no G/A launch,
-   no synchronizing call, the first iteration within rtol 1e-3 of the same
-   solve through the plain crossings, the final cost finite and below the
-   initial; LM iterations/s through the kernels and through the plain
-   crossings in alternating turns; and ``bench_problem.matvec_profile``
-   (matvec ms at 300 to 2,400 observations per pose, the fit, the split by
-   op);
+   ``explicit_s="never"`` (matrix-free PCG): exactly 23 reduces and 2
+   broadcasts per LM iteration (3 + 20 CG steps; schur_rhs and the
+   preconditioner) and 20 launches of each matvec kernel (W^T x, the
+   Hll^-1 step, the pose side: each CG step's matvec is those and a
+   reduce), every matvec on that fused path (the ``schur.matvec_fused``
+   counter over ``schur.cg_trips``), no G/A launch, no synchronizing call,
+   the first iteration within rtol 1e-3 of the same solve through the
+   plain crossings, the final cost finite and below the initial; LM
+   iterations/s through the kernels and through the plain crossings in
+   alternating turns; each matvec kernel's device ms at the headline's
+   first linearization beside its bound and its plain version's
+   (``bench_problem.matvec_kernel_times``), and the fused and plain f32
+   matvecs' distance from an f64 one (the fused within 2x the plain's or
+   2^-24: ``bench_problem.matvec_error``); the three matvec kernels at
+   venice-mf's whole shape on random operands (``bench_problem.
+   MATVEC_CELL``: strided W, ids outside [0, M), fixed cameras; the pose
+   side's 1,024-thread blocks) held to their plain versions (wt_slots and
+   landmark_step bit for bit, pose_side within 1e-5 of its terms'
+   magnitudes, two runs bit-identical) and timed beside their bounds; the
+   headline solve from six seeds through the fused matvec, the plain one
+   and the CPU in f32, each held to the CPU's f64 solve (the fused
+   solve's median distance within 2x the others'); and
+   ``bench_problem.matvec_profile`` (matvec ms at 300 to 2,400 observations
+   per pose, the fit, the split by op);
 7. ba_dataset: ``tests/test_ba.py``'s dataset (100 landmarks from
    ``draw_landmarks`` seed 7, 300 steps, fx = fy = 200, 10 Hz: 27 camera
    frames) generated on the card, written by ``save_vo_dataset`` into a
@@ -109,8 +126,9 @@ it imports no JAX. Phases, each reported on its own line:
 10. vio: ``bench.py``'s ``bench_vio`` configuration (BASELINE config 4:
    120 landmarks, 600 steps, 10 Hz keyframes, 15 LM iterations, 60 CG steps,
    f32) built by the port from seeds, solved with ``solver="auto"`` (the
-   dense path, one G/A launch per iteration) and ``solver="pcg"``: launch
-   counts as worked out from the code, the synchronizing calls listed (only
+   dense path, one G/A launch per iteration) and ``solver="pcg"`` (the
+   fused matvec, as in matrix_free): launch counts as worked out from the
+   code, the synchronizing calls listed (only
    ``torch.linalg`` calls allowed), final cost and ATE below the initial
    perturbation's, keyframes/s, and the same solve on this machine's CPU
    through the plain versions (final cost within rtol 1e-2, keyframe
@@ -311,12 +329,15 @@ it imports no JAX. Phases, each reported on its own line:
     synchronizes). dist_ba at each: the headline problem through
     ``partition_ba_problem`` and ``solve_ba_sharded`` (matrix-free, 10 LM,
     20 CG): 23 reduce and 22 broadcast launches per rank per LM iteration
-    (as the single-device matrix-free solve), one held iteration's calls
+    (sharded blocks take the plain matvec, whose broadcast gathers y; the
+    single-device solve's fused matvec gathers it inside its pose-side
+    kernel), one held iteration's calls
     equal to their plain versions bit for bit, the ranks' states equal bit
     for bit, the final cost below the initial, the first iteration of the
     same solve at f64 within rtol 1e-7 of the single-device one's, at f32
     within 3x the single-device solve's own gap between the card and the
-    CPU measured in the same run (20 CG steps amplify any summation order
+    CPU measured in the same run (single-device yardsticks take the plain
+    matvec, as sharded blocks do; 20 CG steps amplify any summation order
     past 1e-3), at 1 rank no synchronizing call (sync debug mode); LM
     iterations/s per rank and the collectives' share of an iteration. At
     2 ranks also: a 20-pose f64 problem sharded on the card against the
@@ -356,7 +377,8 @@ larger of the bytes it must move over 3.35 TB/s and its operations over
 XOR + popcount word operations over the popcount issue rate, 16 per SM per
 clock at this card's SM count and maximum SM clock; the table's bit
 operations, an AND and an add per bit pair, over the .b1 rate measured in
-this run); the last
+this run; the three matvec kernels at venice-mf's shape, launches per
+headline matrix-free solve, ``replaces`` null: no Pallas kernel); the last
 line is ``{"ok": true, "device": {...}}``. Any failed phase raises and the
 script exits non-zero without that line.
 """
@@ -432,7 +454,7 @@ from libwave_tpu_torch.pipelines import (
 )
 from libwave_tpu_torch.sim import euroc_sim, vo_dataset
 from libwave_tpu_torch.utils import config as utils_config
-from libwave_tpu_torch.utils import precision
+from libwave_tpu_torch.utils import precision, trace
 from libwave_tpu_torch.vision import flann, flann_float, images, matcher
 from libwave_tpu_torch.vision.descriptor import (
     brisk_describe,
@@ -453,6 +475,10 @@ TABLE_DESIGNS_SOURCE = "libwave_tpu_torch/csrc/table_designs.cu"
 TOP2_REPLACES = "libwave_tpu/ops/hamming.py:103"
 TABLE_REPLACES = "libwave_tpu/ops/hamming.py:27"
 SEG_SOURCE = "libwave_tpu_torch/csrc/segmm_seg.cu"
+MATVEC_SOURCE = "libwave_tpu_torch/csrc/schur_matvec.cu"
+# the matvec kernels replace no Pallas kernel: the JAX package's
+# schur_matvec (libwave_tpu/optim/schur.py:653) is one XLA fusion
+MATVEC_REPLACES = None
 REDUCE_REPLACES = "libwave_tpu/ops/segmm.py:65"
 BROADCAST_REPLACES = "libwave_tpu/ops/segmm.py:117"
 # the H100 SXM's published HBM rate and non-tensor f32 rate (NVIDIA's data
@@ -659,15 +685,30 @@ COUNTED = {
 }
 
 
+# the matrix-free matvec's own kernels, counted apart: only matrix-free
+# PCG solves launch them (matvec_launches)
+MATVEC_COUNTED = {
+    "matvec_wt_slots": segmm.matvec_wt_slots,
+    "matvec_landmark_step": segmm.matvec_landmark_step,
+    "matvec_pose_side": segmm.matvec_pose_side,
+}
+
+
 def reset_launches():
     """Set every kernel's launch count to 0."""
-    for fn in COUNTED.values():
+    for fn in (*COUNTED.values(), *MATVEC_COUNTED.values()):
         fn.launches = 0
 
 
 def launch_counts():
-    """Every kernel's launch count since the last reset."""
+    """Every kernel's launch count since the last reset, but the
+    matvec's."""
     return {name: fn.launches for name, fn in COUNTED.items()}
+
+
+def matvec_launches():
+    """The matvec kernels' launch counts since the last reset."""
+    return {name: fn.launches for name, fn in MATVEC_COUNTED.items()}
 
 
 def bound(nbytes, ops=0.0, ops_per_s=ALU_OPS_PER_S):
@@ -688,6 +729,7 @@ def _timed_build(build):
 def phase_build():
     """One nvcc per source, all started together."""
     builds = ((KERNEL_SOURCE, segmm.build), (SEG_SOURCE, segmm.build_seg),
+              (MATVEC_SOURCE, segmm.build_matvec),
               (HAMMING_SOURCE, hamming.build),
               (TABLE_DESIGNS_SOURCE,
                lambda: bench_designs.table_library()[1]))
@@ -1267,18 +1309,26 @@ def phase_matrix_free(problem, state, smi):
                               explicit_s="never")
     cg = cfg.cg_max_iters
     reset_launches()
-    (_, info), syncs = _sync_free(
-        lambda: ba.solve_ba(problem, state, cfg))
-    counts = launch_counts()
+    with trace.recording() as rec:
+        (_, info), syncs = _sync_free(
+            lambda: ba.solve_ba(problem, state, cfg))
+    counts, mv_counts = launch_counts(), matvec_launches()
     check(not syncs, f"matrix_free: synchronizing calls inside solve_ba: "
           f"{dict(syncs)}")
     # per LM iteration: reduces of Hll, bl and back-substitution plus one
     # per CG matvec; broadcasts of schur_rhs and the preconditioner's self
-    # blocks plus one per CG matvec
+    # blocks; each CG matvec also W^T x, the Hll^-1 step and the pose side
+    # (which gathers y itself)
     want = dict(segmm_g_a=0, seg_reduce=(3 + cg) * LM_ITERS,
-                seg_broadcast=(2 + cg) * LM_ITERS, hamming_top2=0,
-                hamming_table=0)
+                seg_broadcast=2 * LM_ITERS, hamming_top2=0, hamming_table=0)
     check(counts == want, f"matrix_free: launches {counts}, expected {want}")
+    want = dict.fromkeys(MATVEC_COUNTED, cg * LM_ITERS)
+    check(mv_counts == want, f"matrix_free: matvec launches {mv_counts}, "
+          f"expected {want}")
+    fused, trips = (rec.counters["schur.matvec_fused"],
+                    rec.counters["schur.cg_trips"])
+    check(fused == trips == cg * LM_ITERS, f"matrix_free: {fused} of "
+          f"{trips} matvecs on the fused path")
     c0 = float(info["initial_cost"])
     costs = info["costs"].cpu().numpy().astype(np.float64)
     check(np.isfinite(c0) and np.isfinite(costs).all() and costs[-1] < c0,
@@ -1292,12 +1342,38 @@ def phase_matrix_free(problem, state, smi):
     rel = np.abs(costs - costs_p) / np.abs(costs_p)
     print(f"matrix_free: explicit_s='never', {counts['seg_reduce']} reduce "
           f"and {counts['seg_broadcast']} broadcast launches in {LM_ITERS} "
-          f"LM iterations ({3 + cg} and {2 + cg} per iteration at {cg} CG "
-          f"steps, as worked out from the code), no G/A launch, no "
-          f"synchronizing call; cost {c0:.6e} -> {costs[-1]:.6e}; the plain "
-          f"crossings' trajectory differs by at most {rel.max():.3e} "
-          f"(first iteration {rel[0]:.3e}, rtol 1e-3): "
-          f"{' '.join(f'{c:.6e}' for c in costs)}")
+          f"LM iterations ({3 + cg} and 2 per iteration at {cg} CG "
+          f"steps, as worked out from the code), "
+          + ", ".join(f"{v} {k}" for k, v in mv_counts.items())
+          + f" launches ({cg} per iteration each); the fused path took "
+          f"{fused} of {trips} matvecs ({100.0 * fused / trips:.1f}%); no "
+          f"G/A launch, no synchronizing call; cost {c0:.6e} -> "
+          f"{costs[-1]:.6e}; the plain crossings' trajectory differs by at "
+          f"most {rel.max():.3e} (first iteration {rel[0]:.3e}, rtol "
+          f"1e-3): {' '.join(f'{c:.6e}' for c in costs)}")
+    lam = torch.tensor(cfg.init_lambda, dtype=state.p.dtype,
+                       device=state.p.device)
+    with precision.full_f32():
+        blocks = ba._linearize_ba(problem, state, lam)
+    x = torch.randn(blocks.bp.shape, generator=torch.Generator(
+        device=state.p.device).manual_seed(0), device=state.p.device)
+    steps = bench_problem.matvec_kernel_times(blocks, x)
+    print("matrix_free: the fused matvec at the headline's first "
+          "linearization, device ms a call (CUDA-graph replay; the plain "
+          "reduce on a host clock: it syncs) beside the bound (bytes over "
+          "3.35 TB/s) and the plain version's: " + "; ".join(
+              f"{k} {v['ms']:.4f} (bound {bound(v['bytes'])[0]:.4f}, "
+              f"{v['bytes'] / 1e6:.3f} MB; plain {v['plain_ms']:.4f})"
+              for k, v in steps.items()) + f" | {smi}")
+    err = bench_problem.matvec_error(blocks, x)
+    check(err["fused"] <= 2 * err["plain"] + 2.0**-24,
+          f"matrix_free: the fused matvec lies {err['fused']:.3e} from the "
+          f"f64 one, the plain {err['plain']:.3e}")
+    print(f"matrix_free: f32 matvec against f64 (2-norm, relative): fused "
+          f"{err['fused']:.3e}, plain {err['plain']:.3e}")
+    del blocks, x
+    mv_stats = _matvec_cell(smi)
+    _solve_witness(cfg, problem.uv.device, smi)
     rates = {"kernel": [], "plain": []}
     final = {}
     for which in ("kernel", "plain", "plain", "kernel"):
@@ -1316,7 +1392,117 @@ def phase_matrix_free(problem, state, smi):
           + ", ".join(f"{k} {v:.4f}" for k, v in prof.items())
           + " | per op at 300 obs/pose (ms): "
           + ", ".join(f"{k} {v:.4f}" for k, v in ops.items()) + f" | {smi}")
-    return counts, costs
+    return {**counts, **mv_counts}, mv_stats
+
+
+def _matvec_cell(smi):
+    """The three matvec kernels on random operands of venice-mf's shape
+    (``bench_problem.MATVEC_CELL``: 1,778 poses, Pmax 3,013, so the pose
+    side's 1,024-thread blocks; 993,923 landmarks; a strided window view of
+    W, ids outside [0, M), padding, fixed cameras and a fixed column), each
+    held to its plain version (wt_slots and landmark_step bit for bit,
+    pose_side within 1e-5 of the sum of its terms' magnitudes, two runs
+    bit-identical), then timed beside its bound and its plain version.
+    Returns each kernel's entry stats for the ``kernels`` line."""
+    a = bench_problem.matvec_operands(*bench_problem.MATVEC_CELL,
+                                      device=torch.device("cuda:0"))
+    N, P = a["W"].shape[1:]
+    err = bench_problem.matvec_kernel_errors(a)
+    check(err["same_bits"] and err["fixed_zero"]
+          and err["wt_slots"]["equal"] and err["landmark_step"]["equal"]
+          and err["pose_side"]["rel"] <= 1e-5,
+          f"matrix_free: the matvec kernels at venice-mf's shape against "
+          f"their plain versions: {err}")
+    steps = bench_problem.matvec_kernel_times(
+        *bench_problem.matvec_operand_blocks(a))
+    print(f"matrix_free: the matvec kernels at venice-mf's shape (N {N}, "
+          f"Pmax {P}, M {a['hinv'].shape[1]}, strided W, random operands): "
+          f"wt_slots and landmark_step equal their plain versions bit for "
+          f"bit, pose_side within {err['pose_side']['rel']:.3e} of its "
+          f"terms' magnitudes (max abs {err['pose_side']['max_abs_err']:.3e},"
+          f" limit 1e-5), two runs bit-identical; device ms a call beside "
+          f"the bound and the plain version's: " + "; ".join(
+              f"{k} {v['ms']:.4f} (bound {bound(v['bytes'])[0]:.4f}, "
+              f"{v['bytes'] / 1e6:.3f} MB; plain {v['plain_ms']:.4f})"
+              for k, v in steps.items()) + f" | {smi}")
+    out = {}
+    for name in ("wt_slots", "landmark_step", "pose_side"):
+        bound_ms, bound_by = bound(steps[name]["bytes"])
+        out[f"matvec_{name}"] = dict(
+            max_abs_err=err[name]["max_abs_err"], ms=steps[name]["ms"],
+            plain_ms=steps[name]["plain_ms"], bound_ms=bound_ms,
+            bound_by=bound_by, library_ms=None)
+    return out
+
+
+# seeds of the headline problem the fused matrix-free solve is witnessed on
+WITNESS_SEEDS = (0, 1, 2, 3, 4, 5)
+
+
+def _solve_witness(cfg, dev, smi):
+    """The matrix-free headline solve (``cfg``) from each of WITNESS_SEEDS
+    four ways: on the card through the fused matvec and through the plain
+    one, on the CPU in f32 and, the witness, in f64. Each f32 solve's
+    distance from the witness: the final state's RMS position difference
+    (poses and landmarks, m), the final cost's excess (at the f32 floor,
+    where every f32 solve ends far above the f64 one), and the largest
+    relative cost difference over the iterations whose f64 cost is at least
+    100x its final one (short of that floor); and, at the first
+    linearization, 20 steps of PCG's solution's distance from the f64 PCG's
+    (relative 2-norm). The fused solve's median distance over the seeds
+    must be within 2x the larger of the two other f32 solves' medians:
+    f32 rounding, amplified by inexact CG steps, parts the f32 solves from
+    the witness; a defect of the fused matvec would part it further."""
+    cpu = torch.device("cpu")
+    names = ("fused", "plain", "cpu_f32")
+    rows = {k: [] for k in names}
+    for seed in WITNESS_SEEDS:
+        problem, state = bench_problem.make_problem(seed=seed, device=dev)
+        wide = _to_f64(to_device(problem, cpu), to_device(state, cpu))
+        st_w, info_w = ba.solve_ba(*wide, cfg)
+        c_w = info_w["costs"].numpy()
+        live = c_w >= 100 * c_w[-1]  # iterations short of the f32 floor
+        lam = torch.tensor(cfg.init_lambda, dtype=torch.float64)
+        with precision.full_f32():
+            blocks = ba._linearize_ba(*wide, lam)
+            dx_w = schur.pcg(blocks, schur.schur_rhs(blocks),
+                             cfg.cg_max_iters, cfg.cg_tol).x
+        for name in names:
+            pr, st = ((to_device(problem, cpu), to_device(state, cpu))
+                      if name == "cpu_f32" else (problem, state))
+            with (contextlib.nullcontext() if name == "fused" else
+                  mock.patch.object(schur, "_takes_fused_matvec",
+                                    return_value=False)):
+                out, info = ba.solve_ba(pr, st, cfg)
+                lam = torch.tensor(cfg.init_lambda, device=st.p.device)
+                with precision.full_f32():
+                    blocks = ba._linearize_ba(pr, st, lam)
+                    dx = schur.pcg(blocks, schur.schur_rhs(blocks),
+                                   cfg.cg_max_iters, cfg.cg_tol).x
+            c = info["costs"].cpu().double().numpy()
+            d = torch.cat([(out.p.cpu().double() - st_w.p).reshape(-1),
+                           (out.lm.cpu().double() - st_w.lm).reshape(-1)])
+            rows[name].append(dict(
+                state=float(d.square().mean().sqrt()),
+                cost=float(c[-1] / c_w[-1] - 1),
+                path=float(np.max(np.abs(c / c_w - 1)[live])),
+                pcg=float((dx.cpu().double() - dx_w).norm() / dx_w.norm())))
+    med = {k: {m: float(np.median([r[m] for r in v])) for m in v[0]}
+           for k, v in rows.items()}
+    for m in ("state", "cost", "path", "pcg"):
+        ref = max(med["plain"][m], med["cpu_f32"][m])
+        check(med["fused"][m] <= 2 * ref, f"matrix_free witness: the fused "
+              f"solve's median {m} distance from the f64 solve "
+              f"{med['fused'][m]:.3e}, the other f32 solves' "
+              f"{med['plain'][m]:.3e} and {med['cpu_f32'][m]:.3e}: {rows}")
+    print(f"matrix_free witness: the headline solve ({LM_ITERS} LM, "
+          f"{cfg.cg_max_iters} CG, matrix-free) from seeds "
+          f"{list(WITNESS_SEEDS)} against the same solve in f64 on the CPU; "
+          f"medians over the seeds (fused / plain matvec on the card / CPU "
+          f"f32; each within 2x of the larger other): " + "; ".join(
+              f"{m} " + " / ".join(f"{med[k][m]:.3e}" for k in names)
+              for m in ("state", "cost", "path", "pcg"))
+          + " | per seed: " + json.dumps(rows) + f" | {smi}")
 
 
 def _band_calls(bands):
@@ -1631,25 +1817,27 @@ def phase_vio(dev, smi):
     linalg_sites = _linalg_sites()
     # per LM iteration, dense: reduces of Hll, bl and back-substitution,
     # schur_rhs's broadcast, one G/A build; PCG: as the matrix-free BA
-    # path, with cg_max_iters matvecs
+    # path, with cg_max_iters matvecs on the fused path
     wants = {
-        "auto": dict(segmm_g_a=it, seg_reduce=3 * it, seg_broadcast=it,
-                     hamming_top2=0, hamming_table=0),
-        "pcg": dict(segmm_g_a=0, seg_reduce=(3 + cg) * it,
-                    seg_broadcast=(2 + cg) * it, hamming_top2=0,
-                    hamming_table=0),
+        "auto": (dict(segmm_g_a=it, seg_reduce=3 * it, seg_broadcast=it,
+                      hamming_top2=0, hamming_table=0),
+                 dict.fromkeys(MATVEC_COUNTED, 0)),
+        "pcg": (dict(segmm_g_a=0, seg_reduce=(3 + cg) * it,
+                     seg_broadcast=2 * it, hamming_top2=0, hamming_table=0),
+                dict.fromkeys(MATVEC_COUNTED, cg * it)),
     }
     cpu = torch.device("cpu")
     problem_cpu, init_cpu = to_device(problem, cpu), to_device(init, cpu)
     out = {}
-    for solver, want in wants.items():
+    for solver, (want, mv_want) in wants.items():
         cfg = bench_problem.vio_config(solver)
         reset_launches()
         (est, info), syncs = _sync_free(
             lambda: vio.solve_vio(problem, init, cfg))
-        counts = launch_counts()
-        check(counts == want, f"vio {solver}: launches {counts}, expected "
-              f"{want}")
+        counts, mv_counts = launch_counts(), matvec_launches()
+        check(counts == want and mv_counts == mv_want,
+              f"vio {solver}: launches {counts} and {mv_counts}, expected "
+              f"{want} and {mv_want}")
         stray = sorted(set(syncs) - linalg_sites)
         check(not stray, f"vio {solver}: synchronizing calls outside "
               f"torch.linalg: {stray}")
@@ -1672,7 +1860,8 @@ def phase_vio(dev, smi):
                            for k, v in sorted(syncs.items())) or "none"
         print(f"vio {solver}: {counts['segmm_g_a']} G/A, "
               f"{counts['seg_reduce']} reduce and {counts['seg_broadcast']} "
-              f"broadcast launches in {it} LM iterations (as worked out from "
+              f"broadcast launches, {mv_counts['matvec_pose_side']} of each "
+              f"matvec kernel in {it} LM iterations (as worked out from "
               f"the code); synchronizing calls: {listed}; cost {c0:.6e} -> "
               f"{cost:.6e} (CPU, plain versions: {cost_cpu:.6e}, ATE "
               f"{_ate(gt, est_cpu):.6f} m; keyframe positions within "
@@ -3920,7 +4109,10 @@ def _rank_dist_vio(mesh, dev, out):
                vio_ate=_ate(gt, st._replace(q=st.q[:N], p=st.p[:N])),
                vio_ate0=_ate(gt, init))
     if mesh.axis("dp").index == 0:
-        _, ref = vio.solve_vio(problem, init, cfg)
+        # through the plain matvec, as the sharded solve
+        with mock.patch.object(schur, "_takes_fused_matvec",
+                               return_value=False):
+            _, ref = vio.solve_vio(problem, init, cfg)
         out["vio_single"] = ref["costs"].cpu().numpy()
 
 
@@ -4125,8 +4317,8 @@ def _check_dist_ba(outs, world, refs, smi):
     print(f"dist_ba: {world} rank(s), {r0['backend']} on one card: "
           f"headline problem (200 poses, 10,000 landmarks, f32, matrix-free, "
           f"{LM_ITERS} LM, {cg} CG) in {world} pose blocks; per rank per LM "
-          f"iteration {3 + cg} reduce and {2 + cg} broadcast launches (as "
-          f"the single-device matrix-free solve), one iteration's calls "
+          f"iteration {3 + cg} reduce and {2 + cg} broadcast launches (the "
+          f"plain matvec of sharded blocks), one iteration's calls "
           f"held to the plain versions bit for bit; the ranks' states equal "
           f"bit for bit; cost {r0['ba_initial']:.6e} -> {costs[-1]:.6e}, "
           f"first iteration {rel:.3e} from the single-device solve's (limit "
@@ -4291,18 +4483,23 @@ def _check_pose_graph(outs, world, smi):
           f"{r0['pg_wall']:.3f} s a solve | {smi}")
 
 
-def phase_distributed(mf_costs, dev, smi):
+def phase_distributed(dev, smi):
     """The distributed phases: dist_ba at 1 (NCCL), 2 and 4 ranks (gloo);
     at 2 ranks also dist_ba f64, dist_lm_step, dist_vio, dist_pose_graph
-    and multi_match; at 4 dist_lm_step and dist_pose_graph. ``mf_costs``: the single-device
-    matrix-free headline solve's costs on the card."""
+    and multi_match; at 4 dist_lm_step and dist_pose_graph. The f32
+    yardstick is the single-device matrix-free headline solve on the card
+    through the plain matvec, the sharded solves' own (the fused one sums
+    in another order)."""
     problem, state = bench_problem.make_problem(device=dev)
+    with mock.patch.object(schur, "_takes_fused_matvec", return_value=False):
+        _, single = ba.solve_ba(problem, state, _dist_cfg())
+    f32 = float(single["costs"][0])
     cpu_dev = torch.device("cpu")
     _, cpu = ba.solve_ba(to_device(problem, cpu_dev),
                          to_device(state, cpu_dev),
                          _dist_cfg())
-    refs = {"f32": mf_costs[0],
-            "floor": abs(float(cpu["costs"][0]) - mf_costs[0]) / mf_costs[0],
+    refs = {"f32": f32,
+            "floor": abs(float(cpu["costs"][0]) - f32) / f32,
             "f64": _first_iteration_f64(problem, state, ba.solve_ba)}
     del problem, state
     torch.cuda.empty_cache()
@@ -4457,7 +4654,7 @@ def main():
     ga_launches = phase_headline(problem, state, cfg, smi)
     phase_small_reference(dev)
     seg = phase_seg(problem, dev, smi)
-    mf_counts, mf_costs = phase_matrix_free(problem, state, smi)
+    mf_counts, mv_stats = phase_matrix_free(problem, state, smi)
     del problem, state
     t0 = time.perf_counter()
     phase_ba_dataset(dev, smi)
@@ -4496,7 +4693,7 @@ def main():
           f"{time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     torch.cuda.empty_cache()
-    phase_distributed(mf_costs, dev, smi)
+    phase_distributed(dev, smi)
     phase_pp_overlap(dev, smi)
     phase_utils(smi)
     print(f"chip_smoke: the distributed phases, pp_overlap and utils took "
@@ -4514,6 +4711,8 @@ def main():
                       top2_launches, ham["top2"]),
         _kernel_entry("hamming_table", HAMMING_SOURCE, TABLE_REPLACES,
                       table_launches, ham["table"]),
+        *(_kernel_entry(k, MATVEC_SOURCE, MATVEC_REPLACES, mf_counts[k], v)
+          for k, v in mv_stats.items()),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count(),

@@ -493,6 +493,177 @@ def matvec_profile(device=None, obs=MATVEC_OBS, reps: int = 50):
     return out
 
 
+def matvec_kernel_times(blocks, x, reps: int = 20) -> dict:
+    """The fused matvec of ``blocks`` (unsharded f32 pose-ELL blocks on the
+    card) step by step: for each of its four launches (``wt_slots``, the
+    ``reduce``, ``landmark_step``, ``pose_side``) the device ms of one call
+    (:func:`device_ms`), the same of its plain version, and the bytes it
+    must move (each input read once, the output written once: f32 values,
+    int32 ids; ``pose_side`` reads ``y`` of the landmarks its ids name);
+    and under ``"matvec"`` the whole ``schur_matvec`` against
+    ``schur._plain_matvec`` (bytes: the four steps'). Reads the layout's
+    slot count and the ids' distinct landmarks on the host."""
+    from libwave_tpu_torch.ops import segmm
+
+    W, free, ell = blocks.W, blocks.free_pose, blocks.lm_order
+    _, N, P = W.shape
+    M, D = blocks.Hll_inv.shape[1], x.shape[1]
+    K = N * P
+    ids = blocks.lm_idx
+    used = int(torch.unique(ids[(ids >= 0) & (ids < M)]).numel())
+    listed = int(ell.offsets[-1])
+    pose_in = 4 * (N * D + free.numel())
+    t = segmm.matvec_wt_slots(W, x, free)
+    utx = segmm.seg_reduce_sorted(t, *ell)
+    y = segmm.matvec_landmark_step(blocks.Hll_inv, utx)
+    steps = {
+        "wt_slots": (lambda: segmm.matvec_wt_slots(W, x, free),
+                     lambda: segmm.matvec_wt_slots_reference(W, x, free),
+                     4 * (18 * K + 3 * K) + pose_in),
+        "reduce": (lambda: segmm.seg_reduce_sorted(t, *ell),
+                   lambda: segmm.seg_reduce_sorted_reference(t, *ell),
+                   4 * (3 * listed + listed + M + 1 + 3 * M)),
+        "landmark_step": (
+            lambda: segmm.matvec_landmark_step(blocks.Hll_inv, utx),
+            lambda: segmm.matvec_landmark_step_reference(blocks.Hll_inv,
+                                                         utx),
+            4 * (6 + 3 + 3) * M),
+        "pose_side": (
+            lambda: segmm.matvec_pose_side(W, ids, y, blocks.Hpp, x, free),
+            lambda: segmm.matvec_pose_side_reference(W, ids, y, blocks.Hpp,
+                                                     x, free),
+            4 * (18 * K + K + 3 * used + N * D * D + N * D) + pose_in),
+    }
+    out = {}
+    for name, (kernel, plain, nbytes) in steps.items():
+        # the plain reduce reads its longest run on the host: host clock
+        plain_ms = (wall_ms(plain, reps) if name == "reduce"
+                    else device_ms(plain, reps))
+        out[name] = {"ms": device_ms(kernel, reps), "plain_ms": plain_ms,
+                     "bytes": nbytes}
+    out["matvec"] = {
+        "ms": device_ms(lambda: schur.schur_matvec(blocks, x), reps),
+        "plain_ms": device_ms(lambda: schur._plain_matvec(blocks, x), reps),
+        "bytes": sum(v["bytes"] for v in out.values())}
+    return out
+
+
+def matvec_error(blocks, x) -> dict:
+    """How far the f32 ``schur_matvec`` of ``blocks`` (the fused path on
+    the card) and ``schur._plain_matvec`` lie from the plain matvec of the
+    same blocks and ``x`` widened to f64: ``|S x - (S x)_f64| / |(S
+    x)_f64|`` (2-norms) for each, under ``"fused"`` and ``"plain"``."""
+    wide = blocks._replace(**{f: getattr(blocks, f).double() for f in (
+        "Hpp", "Hll_inv", "W", "bp", "bl", "free_pose", "C")})
+    with full_f32():
+        ref = schur._plain_matvec(wide, x.double())
+        got = {"fused": schur.schur_matvec(blocks, x),
+               "plain": schur._plain_matvec(blocks, x)}
+    return {k: float((v.double() - ref).norm() / ref.norm())
+            for k, v in got.items()}
+
+
+# (N, Pmax, M, D, free_pose (N, D), W a strided window view) of the matvec
+# kernels' checks: small shapes, the pose side's two block sizes around
+# Pmax = 2,048, and venice-mf's Pmax = 3,013 (at its M = 993,923 too).
+# MATVEC_CELL is venice-mf's whole shape: 1,778 poses, 5,357,114 slots.
+MATVEC_CASES = [
+    (7, 40, 61, 6, False, False),
+    (5, 37, 1000, 15, True, True),
+    (6, 2048, 777, 15, False, False),
+    (4, 2049, 300, 6, True, False),
+    (3, 3013, 5000, 6, False, True),
+    (2, 3013, 993_923, 6, True, True),
+]
+MATVEC_CELL = (1778, 3013, 993_923, 6, True, True)
+
+
+def matvec_operands(N, P, M, D, free_cols, strided, device=None) -> dict:
+    """Random operands of the three matvec kernels, drawn on ``device``
+    from a generator seeded by the shape: W (18, N, P) (the middle third
+    of an (18, 3N, P) union when ``strided``, so its plane stride is 3NP),
+    ids ``(N*P,)`` in [-3, M + 3) with the first pose all -1 (padding), a
+    fixed last camera (and a fixed column where free_pose is (N, D)), x
+    (N, D), Hpp (N, D, D), hinv (6, M), utx (3, M) and y (3, M)."""
+    device = resolve(device)
+    g = torch.Generator(device=device).manual_seed(N * P + M + D)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=device)
+
+    Wu = randn(18, 3 * N if strided else N, P)
+    W = Wu[:, N:2 * N] if strided else Wu
+    ids = torch.randint(-3, M + 3, (N * P,), generator=g, dtype=torch.int32,
+                        device=device)
+    ids[:P] = -1
+    free = torch.ones((N, D) if free_cols else (N,), device=device)
+    free[N - 1] = 0.0
+    if free_cols:
+        free[0, 4] = 0.0
+    return dict(W=W, ids=ids, x=randn(N, D), free=free, Hpp=randn(N, D, D),
+                hinv=randn(6, M), utx=randn(3, M), y=randn(3, M))
+
+
+def matvec_kernel_errors(a: dict) -> dict:
+    """Each matvec wrapper on :func:`matvec_operands` ``a``, run twice and
+    held to its plain version. Per kernel (``wt_slots``, ``landmark_step``,
+    ``pose_side``): ``equal`` (bit for bit) and ``max_abs_err``; for
+    ``pose_side`` also ``rel``, its largest error as a share of the sum of
+    its terms' magnitudes (``|Hpp| |x̂| + |W| |y|``, which bounds the
+    rounding of any order of the sums). ``same_bits``: the two runs
+    agree; ``fixed_zero``: exact zeros on the fixed coordinates."""
+    from libwave_tpu_torch.ops import segmm
+
+    W, ids, x, free = a["W"], a["ids"], a["x"], a["free"]
+    N, P = W.shape[1:]
+    D = x.shape[1]
+    runs = [(segmm.matvec_wt_slots(W, x, free),
+             segmm.matvec_landmark_step(a["hinv"], a["utx"]),
+             segmm.matvec_pose_side(W, ids, a["y"], a["Hpp"], x, free))
+            for _ in range(2)]
+    refs = (segmm.matvec_wt_slots_reference(W, x, free),
+            segmm.matvec_landmark_step_reference(a["hinv"], a["utx"]),
+            segmm.matvec_pose_side_reference(W, ids, a["y"], a["Hpp"], x,
+                                             free))
+    out = {"same_bits": all(torch.equal(u, v) for u, v in zip(*runs))}
+    for name, got, ref in zip(("wt_slots", "landmark_step", "pose_side"),
+                              runs[0], refs):
+        out[name] = {"equal": bool(torch.equal(got, ref)),
+                     "max_abs_err": float((got.double() - ref.double())
+                                          .abs().max())}
+    xh = segmm.project(x, free).abs().double()
+    yk = segmm.seg_broadcast_reference(a["y"].abs().double(), ids)
+    uy = torch.sum(segmm.w_apply(W.abs().double(), yk.reshape(3, N, P)),
+                   dim=-1)
+    scale = (torch.einsum("nij,nj->ni", a["Hpp"].abs().double(), xh)
+             + torch.nn.functional.pad(uy.T, (0, D - 6)))
+    err = (runs[0][2].double() - refs[2].double()).abs()
+    out["pose_side"]["rel"] = float(torch.where(
+        err == 0, 0.0, err / scale).max())
+    fixed = segmm.project(torch.ones_like(x), free) == 0
+    out["fixed_zero"] = bool(fixed.any()) and not bool(runs[0][2][fixed].any())
+    return out
+
+
+def matvec_operand_blocks(a: dict):
+    """(blocks, x): :class:`~libwave_tpu_torch.optim.schur.SchurBlocks` of
+    :func:`matvec_operands` ``a`` (pose-ELL, its landmark layout built on
+    the host from the valid ids, no couplings), for
+    :func:`matvec_kernel_times`."""
+    W, ids, x = a["W"], a["ids"], a["x"]
+    N, M, D = W.shape[1], a["hinv"].shape[1], x.shape[1]
+    dev = W.device
+    layout = schur.build_ell_layout(ids, M, valid=(ids >= 0) & (ids < M),
+                                    device=dev)
+    empty = torch.zeros((0,), dtype=torch.int32, device=dev)
+    blocks = schur.SchurBlocks(
+        Hpp=a["Hpp"], Hll_inv=a["hinv"], W=W, bp=torch.zeros_like(x),
+        bl=a["utx"], pose_idx=empty, lm_idx=ids, lm_order=layout,
+        free_pose=a["free"], ell=layout,
+        C=torch.zeros((0, D, D), device=dev), ci=empty, cj=empty)
+    return blocks, x
+
+
 VIO_PARAMS = VoSimParams(nb_landmarks=120, steps=600, fx=200.0, fy=200.0,
                          hz=10.0)
 

@@ -1,7 +1,7 @@
 """Segment kernels of the Schur system (port of ``libwave_tpu.ops.segmm``).
 
-Three kernels, each a hand-written Hopper kernel built with ``nvcc`` for
-``sm_90a`` at first use and bound with ``ctypes``:
+Hand-written Hopper kernels, built with ``nvcc`` for ``sm_90a`` at first
+use and bound with ``ctypes``:
 
 - :func:`dense_g_a_window` (``csrc/segmm_g_a.cu``): the fused dense-Schur
   G/A build. The dense reduced camera system (``optim.schur.
@@ -14,7 +14,13 @@ Three kernels, each a hand-written Hopper kernel built with ``nvcc`` for
 - :func:`seg_reduce_sorted` / :func:`seg_reduce` (``csrc/segmm_seg.cu``):
   per-landmark sums, the landmark-side reduce of the Schur system;
 - :func:`seg_broadcast` (``csrc/segmm_seg.cu``): the gather ``y[:, idx]``,
-  the landmark-side broadcast.
+  the landmark-side broadcast;
+- :func:`matvec_wt_slots`, :func:`matvec_landmark_step` and
+  :func:`matvec_pose_side` (``csrc/schur_matvec.cu``): with
+  :func:`seg_reduce_sorted` between the first two, the matrix-free Schur
+  matvec ``optim.schur.schur_matvec`` on pose-ELL blocks in four launches:
+  ``W^T x`` per slot, the landmark reduce, the ``Hll^-1`` step, and one
+  pose-side pass that gathers ``y``, applies W and sums a pose's slots.
 
 Each wrapper launches its kernel on a CUDA tensor (or raises on inputs the
 kernel does not take) and counts the launch in its ``launches`` attribute;
@@ -69,6 +75,8 @@ _KERNEL_ROWS = 18  # Dj * 3 rows the CUDA kernel is instantiated for
 _TILE_POSES = 4  # poses per block of the G/A kernel (kTP in segmm_g_a.cu)
 _SEG_SOURCES = ["segmm_seg.cu"]
 _SEG_TYPES = {torch.float32: "f32", torch.float64: "f64"}
+_MATVEC_SOURCES = ["schur_matvec.cu"]
+_MATVEC_ROWS = 18  # Dj * 3 rows of W the matvec kernels take
 _INT32_MAX = 2**31 - 1
 
 
@@ -414,8 +422,11 @@ def _check_seg(what, x, ids, C, K):
             raise ValueError(f"{what}: {name} must be contiguous")
 
 
-def _launch(fn_name, *args):
-    lib, _ = _seg_library()
+def _launch(library, fn_name, *args):
+    """Call ``fn_name`` of ``library()``'s CUDA library on the current
+    stream of the first argument's device: tensors go as their data
+    pointers, the stream last; raise if the launch failed."""
+    lib, _ = library()
     dev = args[0].device
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -452,8 +463,8 @@ def seg_reduce_sorted(vals: torch.Tensor, sigma: torch.Tensor,
     out = torch.empty((C, M), dtype=vals.dtype, device=vals.device)
     if C == 0 or M == 0:
         return out
-    _launch(f"seg_reduce_sorted_{_SEG_TYPES[vals.dtype]}", vals, sigma,
-            offsets, out, C, K, M)
+    _launch(_seg_library, f"seg_reduce_sorted_{_SEG_TYPES[vals.dtype]}",
+            vals, sigma, offsets, out, C, K, M)
     seg_reduce_sorted.launches += 1
     return out
 
@@ -494,7 +505,8 @@ def seg_broadcast(y: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
         return out
     if M == 0:
         return out.zero_()
-    _launch(f"seg_broadcast_{_SEG_TYPES[y.dtype]}", y, idx, out, C, K, M)
+    _launch(_seg_library, f"seg_broadcast_{_SEG_TYPES[y.dtype]}", y, idx,
+            out, C, K, M)
     seg_broadcast.launches += 1
     return out
 
@@ -502,3 +514,250 @@ def seg_broadcast(y: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 # Kernel launches since the counts were last reset (CPU paths add nothing).
 seg_reduce_sorted.launches = 0
 seg_broadcast.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# The matrix-free Schur matvec on pose-ELL blocks (csrc/schur_matvec.cu)
+# ---------------------------------------------------------------------------
+
+
+def project(x: torch.Tensor, free_pose: torch.Tensor) -> torch.Tensor:
+    """Zero out gauge-fixed coordinates. ``free_pose`` is (N,) to fix whole
+    blocks, or (N, D) to fix individual tangent columns."""
+    if free_pose.dim() == 1:
+        return x * free_pose[:, None]
+    return x * free_pose
+
+
+def w_t_apply(W: torch.Tensor, xk: torch.Tensor) -> torch.Tensor:
+    """utx[j] = sum_i W[i*3+j] xk[i] over the Dj observation-touched rows."""
+    Dj = W.shape[0] // 3
+    return torch.stack(
+        [sum(W[i * 3 + j] * xk[i] for i in range(Dj)) for j in range(3)]
+    )
+
+
+def w_apply(W: torch.Tensor, yk: torch.Tensor) -> torch.Tensor:
+    """uy[i] = sum_j W[i*3+j] yk[j] -> (Dj, ...)."""
+    Dj = W.shape[0] // 3
+    return torch.stack(
+        [sum(W[i * 3 + j] * yk[j] for j in range(3)) for i in range(Dj)]
+    )
+
+
+def sym3_matvec(s: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """y = S v for symmetric components s (6, ...) and v (3, ...)."""
+    return torch.stack(
+        [
+            s[0] * v[0] + s[1] * v[1] + s[2] * v[2],
+            s[1] * v[0] + s[3] * v[1] + s[4] * v[2],
+            s[2] * v[0] + s[4] * v[1] + s[5] * v[2],
+        ]
+    )
+
+
+def matvec_wt_slots_reference(W: torch.Tensor, x: torch.Tensor,
+                              free_pose: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch ``W^T x`` per slot: ``t[j, n*P + p] = sum_i W[3i+j, n,
+    p] x̂[n, i]`` with ``x̂ = project(x, free_pose)``; ``W`` (Dj*3, N, P),
+    ``x`` (N, D) -> (3, N*P)."""
+    xk = project(x, free_pose).T[:, :, None]  # (D, N, 1) over the slots
+    return w_t_apply(W, xk).reshape(3, -1)
+
+
+def matvec_landmark_step_reference(hinv: torch.Tensor,
+                                   utx: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch ``Hll^-1`` step: ``y[:, m] = Hll^-1[m] utx[:, m]``
+    from the symmetric components ``hinv`` (6, M); ``utx`` (3, M) -> (3, M)."""
+    return sym3_matvec(hinv, utx)
+
+
+def matvec_pose_side_reference(W: torch.Tensor, lm_idx: torch.Tensor,
+                               y: torch.Tensor, Hpp: torch.Tensor,
+                               x: torch.Tensor,
+                               free_pose: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch pose side of the matvec: ``out[n] = project(Hpp[n] x̂[n]
+    - pad(sum_p W[:, n, p] y[:, lm_idx[n*P + p]]))``, each slot's W block
+    (Dj x 3) applied to its landmark's ``y`` and padded from Dj to D; ids
+    outside ``[0, M)`` gather zeros. ``W`` (Dj*3, N, P), ``lm_idx`` (N*P,),
+    ``y`` (3, M), ``Hpp`` (N, D, D), ``x`` (N, D) -> (N, D)."""
+    D, Dj = Hpp.shape[-1], W.shape[0] // 3
+    out = torch.einsum("nij,nj->ni", Hpp, project(x, free_pose))
+    yk = seg_broadcast_reference(y, lm_idx).reshape((3,) + tuple(W.shape[1:]))
+    uy = torch.sum(w_apply(W, yk), dim=-1)  # (Dj, N)
+    return project(out - torch.nn.functional.pad(uy.T, (0, D - Dj)),
+                   free_pose)
+
+
+@functools.cache
+def _matvec_library() -> tuple[ctypes.CDLL, str]:
+    lib, log = _build.load("schur_matvec", _MATVEC_SOURCES)
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.matvec_wt_slots_f32.argtypes = [p, ll, p, p, i, p, i, i, i, p]
+    lib.matvec_landmark_step_f32.argtypes = [p, p, p, i, p]
+    lib.matvec_pose_side_f32.argtypes = [p, ll, p, p, i, p, p, p, i, p, i,
+                                         i, i, p]
+    for fn in (lib.matvec_wt_slots_f32, lib.matvec_landmark_step_f32,
+               lib.matvec_pose_side_f32):
+        fn.restype = ctypes.c_int
+    return lib, log
+
+
+def build_matvec() -> str:
+    """Build (or reuse) and load the matvec library; returns the compiler's
+    ``-Xptxas -v`` report."""
+    return _matvec_library()[1]
+
+
+def _check_f32(what, named, device):
+    """Every tensor of ``named`` float32 on ``device``, contiguous."""
+    for name, t in named:
+        if t.device != device:
+            raise ValueError(f"{what}: {name} is on {t.device}, W on "
+                             f"{device}; they must share one device")
+        if t.dtype != torch.float32:
+            raise TypeError(f"{what} on CUDA takes float32 values, got "
+                            f"{name} {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{what}: {name} must be contiguous")
+
+
+def _check_pose_inputs(what, W, x, free_pose):
+    """W (18, N, P) float32 with contiguous (N, P) planes at any plane
+    stride, x (N, D) with D >= 6 and free_pose (N,) or (N, D), float32,
+    contiguous, on W's device. Returns (N, P, D, free_cols)."""
+    if W.dtype != torch.float32:
+        raise TypeError(f"{what} on CUDA takes float32 W, got {W.dtype}")
+    if W.dim() != 3 or W.shape[0] != _MATVEC_ROWS:
+        raise ValueError(f"{what} takes W (Dj*3 = {_MATVEC_ROWS} rows, N, "
+                         f"Pmax), got shape {tuple(W.shape)}")
+    _, N, P = W.shape
+    if W.stride(2) != 1 or W.stride(1) != P or W.stride(0) < N * P:
+        raise ValueError(f"{what}: W's (N, Pmax) planes must be contiguous "
+                         f"(strides (>= N*Pmax, Pmax, 1)), got strides "
+                         f"{W.stride()}")
+    if N * P > _INT32_MAX:
+        raise ValueError(f"{what}: at most 2^31 - 1 slots, got N={N}, "
+                         f"Pmax={P}")
+    D = x.shape[-1] if x.dim() == 2 else -1
+    if x.dim() != 2 or x.shape[0] != N or D < _MATVEC_ROWS // 3:
+        raise ValueError(f"{what}: x must be (N={N}, D >= "
+                         f"{_MATVEC_ROWS // 3}), got {tuple(x.shape)}")
+    if tuple(free_pose.shape) not in ((N,), (N, D)):
+        raise ValueError(f"{what}: free_pose must be ({N},) or ({N}, {D}), "
+                         f"got {tuple(free_pose.shape)}")
+    _check_f32(what, (("x", x), ("free_pose", free_pose)), W.device)
+    return N, P, D, 0 if free_pose.dim() == 1 else D
+
+
+def matvec_wt_slots(W: torch.Tensor, x: torch.Tensor,
+                    free_pose: torch.Tensor) -> torch.Tensor:
+    """``W^T x`` per slot, the projection folded in: ``W`` (18, N, Pmax)
+    pose-ELL blocks, ``x`` (N, D), ``free_pose`` (N,) or (N, D) -> ``t``
+    (3, N*Pmax), ``t[j, n*Pmax + p] = sum_i W[3i+j, n, p] x[n, i]
+    free_pose[n(, i)]``.
+
+    On CUDA this launches ``csrc/schur_matvec.cu``'s ``wt_slots`` on the
+    current stream (float32; W's planes contiguous at any plane stride, so
+    a batched window's view is read in place; x and free_pose contiguous)
+    and counts it in ``matvec_wt_slots.launches``; other inputs raise. On
+    CPU it returns :func:`matvec_wt_slots_reference`."""
+    if W.device.type == "cpu":
+        return matvec_wt_slots_reference(W, x, free_pose)
+    N, P, D, free_cols = _check_pose_inputs("matvec_wt_slots", W, x,
+                                            free_pose)
+    if W.device.type != "cuda":
+        raise ValueError(f"matvec_wt_slots: unsupported device {W.device}")
+    t = torch.empty((3, N * P), dtype=W.dtype, device=W.device)
+    if N * P == 0:
+        return t
+    _launch(_matvec_library, "matvec_wt_slots_f32", W, W.stride(0), x,
+            free_pose, free_cols, t, N, P, D)
+    matvec_wt_slots.launches += 1
+    return t
+
+
+def matvec_landmark_step(hinv: torch.Tensor,
+                         utx: torch.Tensor) -> torch.Tensor:
+    """The ``Hll^-1`` step: ``hinv`` (6, M) symmetric components of the
+    inverted landmark blocks, ``utx`` (3, M) -> ``y`` (3, M), ``y[:, m] =
+    Hll^-1[m] utx[:, m]``.
+
+    On CUDA this launches ``csrc/schur_matvec.cu``'s ``landmark_step`` on
+    the current stream (float32, contiguous) and counts it in
+    ``matvec_landmark_step.launches``; other inputs raise. On CPU it returns
+    :func:`matvec_landmark_step_reference`."""
+    if hinv.device.type == "cpu":
+        return matvec_landmark_step_reference(hinv, utx)
+    M = hinv.shape[1] if hinv.dim() == 2 else -1
+    if hinv.dim() != 2 or hinv.shape[0] != 6 or tuple(utx.shape) != (3, M):
+        raise ValueError(f"matvec_landmark_step: hinv (6, M) and utx (3, M) "
+                         f"expected, got {tuple(hinv.shape)} and "
+                         f"{tuple(utx.shape)}")
+    if M > _INT32_MAX:
+        raise ValueError(f"matvec_landmark_step: at most 2^31 - 1 "
+                         f"landmarks, got {M}")
+    _check_f32("matvec_landmark_step", (("hinv", hinv), ("utx", utx)),
+               hinv.device)
+    if hinv.device.type != "cuda":
+        raise ValueError(f"matvec_landmark_step: unsupported device "
+                         f"{hinv.device}")
+    y = torch.empty((3, M), dtype=hinv.dtype, device=hinv.device)
+    if M == 0:
+        return y
+    _launch(_matvec_library, "matvec_landmark_step_f32", hinv, utx, y, M)
+    matvec_landmark_step.launches += 1
+    return y
+
+
+def matvec_pose_side(W: torch.Tensor, lm_idx: torch.Tensor, y: torch.Tensor,
+                     Hpp: torch.Tensor, x: torch.Tensor,
+                     free_pose: torch.Tensor) -> torch.Tensor:
+    """The pose side of the matvec in one pass: ``W`` (18, N, Pmax), slot
+    ids ``lm_idx`` (N*Pmax,), ``y`` (3, M), ``Hpp`` (N, D, D), ``x`` (N, D),
+    ``free_pose`` (N,) or (N, D) -> ``out`` (N, D), ``out[n] =
+    project(Hpp[n] x̂[n] - pad(sum_p W[:, n, p] y[:, lm_idx[n*Pmax + p]]))``
+    with ``x̂ = project(x, free_pose)``; ids outside ``[0, M)`` gather
+    zeros.
+
+    On CUDA this launches ``csrc/schur_matvec.cu``'s ``pose_side`` on the
+    current stream (float32 values, int32 ids; W as for
+    :func:`matvec_wt_slots`, the rest contiguous) and counts it in
+    ``matvec_pose_side.launches``; other inputs raise. A pose's slots add
+    in the kernel's fixed order, not ``torch.sum``'s. On CPU it returns
+    :func:`matvec_pose_side_reference`."""
+    if W.device.type == "cpu":
+        return matvec_pose_side_reference(W, lm_idx, y, Hpp, x, free_pose)
+    what = "matvec_pose_side"
+    N, P, D, free_cols = _check_pose_inputs(what, W, x, free_pose)
+    M = y.shape[1] if y.dim() == 2 else -1
+    if y.dim() != 2 or y.shape[0] != 3 or M > _INT32_MAX:
+        raise ValueError(f"{what}: y must be (3, M < 2^31), got "
+                         f"{tuple(y.shape)}")
+    if tuple(Hpp.shape) != (N, D, D):
+        raise ValueError(f"{what}: Hpp must be ({N}, {D}, {D}), got "
+                         f"{tuple(Hpp.shape)}")
+    if tuple(lm_idx.shape) != (N * P,):
+        raise ValueError(f"{what}: lm_idx must be ({N * P},), got "
+                         f"{tuple(lm_idx.shape)}")
+    if lm_idx.dtype != torch.int32:
+        raise TypeError(f"{what}: lm_idx must be int32, got {lm_idx.dtype}")
+    if lm_idx.device != W.device or not lm_idx.is_contiguous():
+        raise ValueError(f"{what}: lm_idx must be contiguous on W's device "
+                         f"{W.device}")
+    _check_f32(what, (("y", y), ("Hpp", Hpp)), W.device)
+    if W.device.type != "cuda":
+        raise ValueError(f"{what}: unsupported device {W.device}")
+    out = torch.empty((N, D), dtype=W.dtype, device=W.device)
+    if N == 0:
+        return out
+    _launch(_matvec_library, "matvec_pose_side_f32", W, W.stride(0), lm_idx,
+            y, M, Hpp, x, free_pose, free_cols, out, N, P, D)
+    matvec_pose_side.launches += 1
+    return out
+
+
+# Kernel launches since the counts were last reset (CPU paths add nothing).
+matvec_wt_slots.launches = 0
+matvec_landmark_step.launches = 0
+matvec_pose_side.launches = 0

@@ -50,7 +50,14 @@ import numpy as onp
 import torch
 
 from libwave_tpu_torch.ops import segmm
-from libwave_tpu_torch.ops.segmm import EllLayout, dense_g_a_window
+from libwave_tpu_torch.ops.segmm import (
+    EllLayout,
+    dense_g_a_window,
+    project as _project,
+    sym3_matvec,
+    w_apply as _w_apply,
+    w_t_apply as _w_t_apply,
+)
 from libwave_tpu_torch.utils.device import resolve
 from libwave_tpu_torch.utils.precision import f32_matmuls
 from libwave_tpu_torch.utils.trace import count, span
@@ -264,17 +271,6 @@ def sym3_inv(s):
     det = a * A11 + b * A12 + c * A13
     inv_det = 1.0 / torch.where(torch.abs(det) < 1e-30, 1.0, det)
     return torch.stack([A11, A12, A13, A22, A23, A33]) * inv_det
-
-
-def sym3_matvec(s, v):
-    """y = S v for symmetric components s (6, ...) and v (3, ...)."""
-    return torch.stack(
-        [
-            s[0] * v[0] + s[1] * v[1] + s[2] * v[2],
-            s[1] * v[0] + s[3] * v[1] + s[4] * v[2],
-            s[2] * v[0] + s[4] * v[1] + s[5] * v[2],
-        ]
-    )
 
 
 def _cholesky_or_nan(A):
@@ -589,14 +585,6 @@ def build_normal_equations(
     )
 
 
-def _project(x, free_pose):
-    """Zero out gauge-fixed coordinates. ``free_pose`` is (N,) to fix whole
-    blocks, or (N, D) to fix individual tangent columns."""
-    if free_pose.dim() == 1:
-        return x * free_pose[:, None]
-    return x * free_pose
-
-
 def local_pose_block(x, num_poses: int, axis_name):
     """(x_local, nb): this rank's contiguous pose block of replicated
     (N, ...) data under sharded ELL blocks; identity when axis_name is
@@ -629,24 +617,61 @@ def _gather_lm(blocks: SchurBlocks, y):
     return yk
 
 
-def _w_t_apply(W, xk):
-    """utx[j] = sum_i W[i*3+j] xk[i] over the Dj observation-touched rows."""
-    Dj = W.shape[0] // 3
-    return torch.stack(
-        [sum(W[i * 3 + j] * xk[i] for i in range(Dj)) for j in range(3)]
-    )
+def _add_couplings(blocks: SchurBlocks, out, x):
+    """``out`` plus the pose-pose couplings' products with the projected
+    ``x``: C x_j into row i, C^T x_i into row j."""
+    cx_j = _einsum("fij,fj->fi", blocks.C, x[blocks.cj])  # (F, D)
+    cx_i = _einsum("fji,fj->fi", blocks.C, x[blocks.ci])  # C^T x_i
+    out = out + _segment_sum0(cx_j, blocks.ci, x.shape[0])
+    return out + _segment_sum0(cx_i, blocks.cj, x.shape[0])
 
 
-def _w_apply(W, yk):
-    """uy[i] = sum_j W[i*3+j] yk[j] -> (Dj, ...)."""
-    Dj = W.shape[0] // 3
-    return torch.stack(
-        [sum(W[i * 3 + j] * yk[j] for j in range(3)) for i in range(Dj)]
-    )
+def _takes_fused_matvec(blocks: SchurBlocks, x) -> bool:
+    """Whether :func:`schur_matvec` runs as the four kernels of
+    :func:`_fused_matvec`: unsharded pose-ELL blocks on the card, float32,
+    whose W touches 6 pose coordinates (18 rows). Elsewhere (the CPU, the
+    flat layout, sharded blocks, f64 or widened pose sums) it runs the
+    composition of PyTorch operations."""
+    return (blocks.W.is_cuda and blocks.ell is not None
+            and blocks.axis_name is None and blocks.W.shape[0] == 18
+            and all(t.dtype == torch.float32 for t in (
+                blocks.W, blocks.Hpp, blocks.Hll_inv, blocks.free_pose, x)))
+
+
+def _fused_matvec(blocks: SchurBlocks, x: torch.Tensor) -> torch.Tensor:
+    """S x in four launches of ``ops.segmm``'s kernels: ``W^T x`` per slot
+    (the projection folded in), the landmark reduce, the ``Hll^-1`` step,
+    and the pose side (gather, W y, slot sums, ``Hpp x``, projection); the
+    pose-pose couplings then in PyTorch, as in :func:`schur_matvec`. On CPU
+    blocks the wrappers run their plain versions: the same numbers as
+    :func:`schur_matvec`'s composition, bit for bit."""
+    x = x.contiguous()
+    t = segmm.matvec_wt_slots(blocks.W, x, blocks.free_pose)  # (3, K)
+    utx = ell_seg_reduce(t, blocks.lm_order)  # (3, M)
+    y = segmm.matvec_landmark_step(blocks.Hll_inv, utx)  # (3, M)
+    out = segmm.matvec_pose_side(blocks.W, blocks.lm_idx, y, blocks.Hpp, x,
+                                 blocks.free_pose)  # (N, D), projected
+    if blocks.C.shape[0] > 0:
+        out = _project(_add_couplings(
+            blocks, out, _project(x, blocks.free_pose)), blocks.free_pose)
+    return out
 
 
 def schur_matvec(blocks: SchurBlocks, x: torch.Tensor) -> torch.Tensor:
-    """S x = Hpp x - U Hll^-1 U^T x, matrix-free. x: (N, D) -> (N, D)."""
+    """S x = Hpp x - U Hll^-1 U^T x, matrix-free. x: (N, D) -> (N, D).
+
+    Unsharded f32 pose-ELL blocks on the card take :func:`_fused_matvec`
+    (counted as ``schur.matvec_fused``); every other case
+    :func:`_plain_matvec`."""
+    if _takes_fused_matvec(blocks, x):
+        count("schur.matvec_fused")
+        return _fused_matvec(blocks, x)
+    return _plain_matvec(blocks, x)
+
+
+def _plain_matvec(blocks: SchurBlocks, x: torch.Tensor) -> torch.Tensor:
+    """S x as a composition of PyTorch operations and the segment
+    kernels, for every layout, dtype and sharding."""
     D = blocks.bp.shape[1]
     x = _project(x, blocks.free_pose)
     out = _einsum("nij,nj->ni", blocks.Hpp, x)
@@ -660,10 +685,7 @@ def schur_matvec(blocks: SchurBlocks, x: torch.Tensor) -> torch.Tensor:
     out = out - _pad_cols(uy.T, D)
     # pose-pose couplings from pose-graph factors
     if blocks.C.shape[0] > 0:
-        cx_j = _einsum("fij,fj->fi", blocks.C, x[blocks.cj])  # (F, D)
-        cx_i = _einsum("fji,fj->fi", blocks.C, x[blocks.ci])  # C^T x_i
-        out = out + _segment_sum0(cx_j, blocks.ci, x.shape[0])
-        out = out + _segment_sum0(cx_i, blocks.cj, x.shape[0])
+        out = _add_couplings(blocks, out, x)
     return _project(out, blocks.free_pose)
 
 

@@ -37,7 +37,9 @@ import torch.autograd.profiler as _autograd_profiler
 # outermost solve span around it (or itself), one per solve.
 SOLVE_SPAN = "ba.solve"
 # The kernel wrappers of ``ops.segmm`` whose ``launches`` a recording reads.
-LAUNCH_COUNTED = ("seg_reduce_sorted", "seg_broadcast", "dense_g_a_window")
+LAUNCH_COUNTED = ("seg_reduce_sorted", "seg_broadcast", "dense_g_a_window",
+                  "matvec_wt_slots", "matvec_landmark_step",
+                  "matvec_pose_side")
 
 _recording = None  # the active Recording, or None
 

@@ -31,6 +31,16 @@ ids in slot order, pass by pass: bit-identical across runs. A one-rank
 NCCL group runs the sharded BA solve to the single-device numbers, bit for
 bit. ``utils.trace.profile_trace`` names the segment reduce kernel after
 other profiler sessions and a CUDA graph ran in the process.
+
+The matvec kernels: ``wt_slots`` and ``landmark_step`` round each product
+and sum as their plain versions do (no FMA): equal bit for bit.
+``pose_side`` adds a pose's slots in its own fixed order and forms Hpp x
+with FMAs, where the plain version's ``torch.sum`` and ``einsum`` take
+others: each adds at most ~50 rounded f32 partial sums in a chain (the
+kernel: a thread's slots, 5 shuffle levels, at most 32 warps), so each
+lies within ~50 * 2^-24 of the sum of the terms' magnitudes from the
+exact value, and the two within 1e-5 of it. All three are bit-identical
+across runs.
 """
 
 import contextlib
@@ -478,6 +488,12 @@ def _launches():
             segmm.seg_broadcast.launches)
 
 
+def _matvec_launches():
+    return (segmm.matvec_wt_slots.launches,
+            segmm.matvec_landmark_step.launches,
+            segmm.matvec_pose_side.launches)
+
+
 def _plain_crossings():
     return mock.patch.multiple(
         segmm, seg_reduce_sorted=segmm.seg_reduce_sorted_reference,
@@ -492,19 +508,53 @@ def test_small_matrix_free_solve_through_segment_kernels(cuda_device):
     cfg = dataclasses.replace(bench_problem.bench_config(3),
                               explicit_s="never")
     cg = cfg.cg_max_iters
-    before = _launches()
+    before, mv_before = _launches(), _matvec_launches()
     _, info = ba.solve_ba(problem, state, cfg)
     # per LM iteration: Hll, bl, back-substitution and one reduce per CG
-    # step; schur_rhs, the preconditioner and one broadcast per CG step
-    assert tuple(a - b for a, b in zip(_launches(), before)) == (
-        0, 3 * (3 + cg), 3 * (2 + cg))
+    # step; schur_rhs's and the preconditioner's broadcasts; each CG step's
+    # matvec also W^T x, the Hll^-1 step and the pose side, which gathers
+    # itself
+    grew = tuple(a - b for a, b in zip(_launches(), before))
+    assert grew == (0, 3 * (3 + cg), 3 * 2)
+    assert tuple(a - b for a, b in zip(_matvec_launches(), mv_before)) == (
+        3 * cg,) * 3
     with _plain_crossings():
         _, info_p = ba.solve_ba(problem, state, cfg)
-    assert _launches()[1:] == (before[1] + 3 * (3 + cg),
-                               before[2] + 3 * (2 + cg))
+    assert _launches()[1:] == (before[1] + 3 * (3 + cg), before[2] + 3 * 2)
+    assert _matvec_launches() == tuple(b + 6 * cg for b in mv_before)
     costs, costs_p = info["costs"].cpu().numpy(), info_p["costs"].cpu().numpy()
     assert np.isfinite(costs).all() and costs[-1] < float(info["initial_cost"])
     np.testing.assert_allclose(costs, costs_p, rtol=1e-3)
+    # the fused matvec is as accurate as the plain one: each f32 matvec's
+    # distance from the f64 one, within 2x the plain one's (or 2^-24)
+    with precision.full_f32():
+        blocks = ba._linearize_ba(problem, state, torch.tensor(
+            cfg.init_lambda, device=cuda_device))
+    x = torch.randn(blocks.bp.shape, generator=torch.Generator(
+        device=cuda_device).manual_seed(0), device=cuda_device)
+    err = bench_problem.matvec_error(blocks, x)
+    assert err["fused"] <= 2 * err["plain"] + 2.0**-24, err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,P,M,D,free_cols,strided",
+                         bench_problem.MATVEC_CASES)
+def test_matvec_kernels_match_plain(cuda_device, N, P, M, D, free_cols,
+                                    strided):
+    """Each matvec kernel against its plain version (module docstring:
+    ``wt_slots`` and ``landmark_step`` bit for bit, ``pose_side`` within
+    1e-5 of the sum of its terms' magnitudes, exact zeros on fixed
+    coordinates), one launch each, and the same bits on a second run."""
+    a = bench_problem.matvec_operands(N, P, M, D, free_cols, strided,
+                                      device=cuda_device)
+    if strided:
+        assert a["W"].stride(0) == 3 * N * P and not a["W"].is_contiguous()
+    before = _matvec_launches()
+    err = bench_problem.matvec_kernel_errors(a)
+    assert _matvec_launches() == tuple(b + 2 for b in before)
+    assert err["same_bits"] and err["fixed_zero"], err
+    assert err["wt_slots"]["equal"] and err["landmark_step"]["equal"], err
+    assert err["pose_side"]["rel"] <= 1e-5, err
 
 
 @pytest.mark.cuda
@@ -891,13 +941,15 @@ def test_batched_tracking_equals_single_on_the_card(cuda_device, method):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("solver", ["dense", "pcg"])
+@pytest.mark.parametrize("solver", ["dense", "pcg", "matrix_free"])
 def test_batched_ba_equals_own_solves_on_the_card(cuda_device, solver):
     """Three f32 windows (``bench.py``'s batched windows cut to 12 poses and
     300 landmarks; one moved far off, so it rejects steps the others
     accept) in one ``solve_ba_batched``: every window's accept flags equal
     its own ``solve_ba``'s on the card, costs within rtol 1e-5; one G/A
-    call per window and iteration on the dense path."""
+    call per window and iteration on the dense path; matrix-free, every
+    window's CG steps through the fused matvec on its strided view of the
+    union's W."""
     problems, states = [], []
     for i in range(3):
         pr, st = bench_problem.make_problem(num_poses=12, num_landmarks=300,
@@ -910,12 +962,19 @@ def test_batched_ba_equals_own_solves_on_the_card(cuda_device, solver):
         problems.append(pr)
         states.append(st)
     cfg_pcg, cfg_dense = bench_problem.batched_configs()
-    cfg = cfg_dense if solver == "dense" else cfg_pcg
+    cfg = {"dense": cfg_dense, "pcg": cfg_pcg,
+           "matrix_free": dataclasses.replace(cfg_pcg,
+                                              explicit_s="never")}[solver]
     before = segmm.dense_g_a_window.launches
+    mv_before = segmm.matvec_pose_side.launches
     out, info = ba.solve_ba_batched(problems, states, cfg)
     launched = segmm.dense_g_a_window.launches - before
     if solver == "dense":
         assert launched == 3 * cfg.max_iterations
+    if solver == "matrix_free":
+        assert launched == 0
+        assert segmm.matvec_pose_side.launches - mv_before == (
+            3 * cfg.max_iterations * cfg.cg_max_iters)
     for b, (pr, st) in enumerate(zip(problems, states)):
         s1, i1 = ba.solve_ba(pr, st, cfg)
         assert torch.equal(info["accepted"][b], i1["accepted"])
@@ -1191,7 +1250,8 @@ def test_plain_g_a_is_bit_identical_across_runs(cuda_device):
 def test_sharded_one_rank_nccl_equals_single_device(cuda_device, tmp_path):
     """``solve_ba_sharded`` over a one-rank NCCL group (its collectives go
     through NCCL) gives the single-device ``solve_ba``'s numbers bit for
-    bit, with the same segment launches."""
+    bit, with the same segment launches, when that solve also takes the
+    plain matvec (the fused one sums in another order)."""
     import torch.distributed as dist
 
     from libwave_tpu_torch.parallel import (
@@ -1219,8 +1279,10 @@ def test_sharded_one_rank_nccl_equals_single_device(cuda_device, tmp_path):
         sharded_launches = segmm.seg_reduce_sorted.launches - before
     finally:
         dist.destroy_process_group()
+    # sharded blocks take the plain matvec: so does the reference here
     before = segmm.seg_reduce_sorted.launches
-    ref, rinfo = ba.solve_ba(problem, state, cfg)
+    with mock.patch.object(schur, "_takes_fused_matvec", return_value=False):
+        ref, rinfo = ba.solve_ba(problem, state, cfg)
     assert segmm.seg_reduce_sorted.launches - before == sharded_launches
     assert torch.equal(info["costs"], rinfo["costs"])
     assert torch.equal(out.p, ref.p) and torch.equal(out.lm, ref.lm)

@@ -16,11 +16,16 @@ reference's synthetic BA dataset go through both packages. Tolerances:
   bound the reference's own tests use (test_ba.py:414), because the G/A
   path rounds G, A and S_sub to f32 at any dtype;
 - the explicit-S contraction runs with TF32 off whatever the caller set:
-  a recorded flag, exact.
+  a recorded flag, exact;
+- the matvec's four kernel steps (``ops.segmm``'s matvec wrappers and the
+  reduce) run their plain versions on the CPU, and composed they give
+  ``schur_matvec``'s numbers bit for bit: the same operations in the same
+  order.
 """
 
 import contextlib
 import functools
+from unittest import mock
 
 import jax
 import jax.numpy as jnp
@@ -35,7 +40,7 @@ from libwave_tpu_torch import interop
 from libwave_tpu_torch.ops import segmm
 from libwave_tpu_torch.optim import ba as tba
 from libwave_tpu_torch.optim import schur as ts
-from libwave_tpu_torch.utils import precision
+from libwave_tpu_torch.utils import precision, trace
 
 N, M = 6, 25
 
@@ -428,3 +433,165 @@ def test_explicit_s_contraction_pins_full_f32(fn, form, dataset_blocks,
     want = {"mm"} if fn == "dense_reduced_system" else {"mm", "chol"}
     assert {s[0] for s in seen} == want
     assert not any(s[1] for s in seen), seen
+
+
+def _port_blocks(lin, rng, layout="ell", D=6, dtype=torch.float64,
+                 free_cols=False, axis_name=None):
+    """The port's blocks of the ``lin`` bank alone: pose dimension ``D``
+    (the observations touch the first 6), random pose-pose couplings, the
+    first pose fixed (and, with ``free_cols``, one column of the second:
+    free_pose (N, D)), everything in ``dtype``. Pose-ELL padding slots lie
+    outside every landmark's run, as ``pack_observations`` leaves them."""
+    def t(a):
+        return torch.as_tensor(a, dtype=dtype)
+
+    r, Jp, Jl, w = (t(lin[k]) for k in ("r", "J_pose", "J_lm", "w"))
+    valid = lin["w"].reshape(-1) > 0
+    ell = None
+    if layout == "ell":
+        ell = ts.build_ell_layout(lin["lm_idx"], M, valid=valid,
+                                  device="cpu")
+    else:
+        r, Jp, Jl = (x.reshape(x.shape[:-2] + (-1,)) for x in (r, Jp, Jl))
+        w = w.reshape(-1)
+    free = np.ones((N, D) if free_cols else N)
+    free[0] = 0.0
+    if free_cols:
+        free[1, 3] = 0.0
+    F = lin["ci"].size
+    couplings = (t(rng.normal(size=(F, D, D))), torch.tensor(lin["ci"]),
+                 torch.tensor(lin["cj"]))
+    return ts.build_normal_equations(
+        r, Jp, Jl, w, torch.tensor(lin["pose_idx"]),
+        torch.tensor(lin["lm_idx"]), N, M, 1e-3, t(free),
+        couplings=couplings, ell=ell, pose_dim=D, axis_name=axis_name)
+
+
+@pytest.mark.parametrize("D,dtype,free_cols,strided", [
+    (6, torch.float64, False, False),
+    (6, torch.float32, False, True),
+    (6, torch.float32, True, False),
+    (15, torch.float32, True, True),
+    (15, torch.float64, False, True),
+    (15, torch.float32, False, False),
+])
+def test_fused_matvec_plain_steps_equal_schur_matvec(D, dtype, free_cols,
+                                                     strided, lin, rng):
+    """``_fused_matvec`` on the CPU (the three matvec wrappers' plain
+    versions and the reduce's, composed as on the card) gives
+    ``schur_matvec``'s numbers bit for bit: pose-ELL blocks with padding
+    slots, D = 6 and 15, free_pose (N,) and (N, D), and W as a batched
+    window's strided view (a plane stride of the union's 3 N Pmax)."""
+    bt = _port_blocks(lin, rng, D=D, dtype=dtype, free_cols=free_cols)
+    assert (bt.W == 0).all(0).any()  # padding slots
+    if strided:
+        big = torch.zeros((18, 3 * N) + tuple(bt.W.shape[2:]), dtype=dtype)
+        big[:, N:2 * N] = bt.W
+        bt = bt._replace(W=big[:, N:2 * N])
+        assert bt.W.stride(0) == 3 * bt.W.shape[1] * bt.W.shape[2]
+    x = torch.as_tensor(rng.normal(size=(N, D)), dtype=dtype)
+    with trace.recording() as rec:
+        want = ts.schur_matvec(bt, x)
+    assert rec.counters["schur.matvec_fused"] == 0
+    assert rec.counters["launches.matvec_pose_side"] == 0
+    got = ts._fused_matvec(bt, x)
+    assert got.dtype == dtype and torch.equal(got, want)
+    # the steps one by one against the composition's pieces
+    xh = ts._project(x, bt.free_pose)
+    t = segmm.matvec_wt_slots(bt.W, x, bt.free_pose)
+    assert torch.equal(t, ts._w_t_apply(bt.W, xh.T[:, :, None]).reshape(3, -1))
+    utx = ts.ell_seg_reduce(t, bt.lm_order)
+    y = segmm.matvec_landmark_step(bt.Hll_inv, utx)
+    assert torch.equal(y, ts.sym3_matvec(bt.Hll_inv, utx))
+
+
+@pytest.mark.parametrize("case", ["card_ell", "cpu", "flat", "sharded",
+                                  "f64", "rows"])
+def test_matvec_dispatch(case, lin, rng):
+    """Which path ``schur_matvec`` takes, read from the ``schur.
+    matvec_fused`` counter and the wrappers' launch counts inside a
+    recording: only unsharded float32 pose-ELL blocks with 18 W rows on
+    the card take the fused path. The card is stood in for by
+    ``Tensor.is_cuda`` (the wrappers still see CPU tensors and run their
+    plain versions: no launch); every other case, on the card too, takes
+    the plain composition. Both give the same numbers."""
+    from libwave_tpu_torch.parallel.mesh import Axis
+
+    bt = _port_blocks(
+        lin, rng, layout="flat" if case == "flat" else "ell",
+        dtype=torch.float64 if case == "f64" else torch.float32,
+        axis_name=Axis("dp", 1, 0) if case == "sharded" else None)
+    if case == "rows":  # W touching 5 pose coordinates
+        bt = bt._replace(W=bt.W[:15])
+    x = torch.as_tensor(rng.normal(size=(N, 6)), dtype=bt.bp.dtype)
+    card = (contextlib.nullcontext() if case == "cpu" else
+            mock.patch.object(torch.Tensor, "is_cuda",
+                              new_callable=mock.PropertyMock,
+                              return_value=True))
+    with card, trace.recording() as rec:
+        got = ts.schur_matvec(bt, x)
+    assert rec.counters["schur.matvec_fused"] == (case == "card_ell")
+    for w in trace.LAUNCH_COUNTED:
+        assert rec.counters[f"launches.{w}"] == 0
+    assert torch.equal(got, ts.schur_matvec(bt, x))
+
+
+def _meta(*shape, dtype=torch.float32):
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def _matvec_args():
+    """Well-formed arguments of the three matvec wrappers on the meta
+    device (no data): N = 4 poses, Pmax = 5, D = 15, M = 7."""
+    N_, P, D, M_ = 4, 5, 15, 7
+    return dict(
+        wt=(_meta(18, N_, P), _meta(N_, D), _meta(N_)),
+        step=(_meta(6, M_), _meta(3, M_)),
+        pose=(_meta(18, N_, P), _meta(N_ * P, dtype=torch.int32),
+              _meta(3, M_), _meta(N_, D, D), _meta(N_, D), _meta(N_, D)),
+    )
+
+
+_WRAPPERS = dict(wt=segmm.matvec_wt_slots, step=segmm.matvec_landmark_step,
+                 pose=segmm.matvec_pose_side)
+
+# (wrapper, argument index, replacement, exception, message)
+_MATVEC_BAD = [
+    ("wt", 0, lambda W: W.double(), TypeError, "float32 W"),
+    ("wt", 0, lambda W: W[:12], ValueError, "rows"),
+    ("wt", 0, lambda W: W.transpose(1, 2).contiguous().transpose(1, 2),
+     ValueError, "planes"),
+    ("wt", 1, lambda x: x[:, :5].contiguous(), ValueError, "D >= 6"),
+    ("wt", 1, lambda x: x.T.contiguous().T, ValueError, "contiguous"),
+    ("wt", 1, lambda x: torch.empty(x.shape), ValueError, "device"),
+    ("wt", 2, lambda f: f.double(), TypeError, "free_pose"),
+    ("wt", 2, lambda f: f[:3], ValueError, "free_pose"),
+    ("step", 0, lambda h: h[:5], ValueError, "hinv"),
+    ("step", 1, lambda u: u.double(), TypeError, "utx"),
+    ("step", 1, lambda u: u[:, :6], ValueError, "utx"),
+    ("pose", 1, lambda i: i.long(), TypeError, "int32"),
+    ("pose", 1, lambda i: i[:-1], ValueError, "lm_idx"),
+    ("pose", 2, lambda y: y[:2], ValueError, "y must be"),
+    ("pose", 3, lambda h: h[:, :6, :6], ValueError, "Hpp"),
+    ("pose", 3, lambda h: h.transpose(1, 2), ValueError, "contiguous"),
+    ("pose", 4, lambda x: x[:3], ValueError, "x must be"),
+]
+
+
+@pytest.mark.parametrize("case", range(len(_MATVEC_BAD) + 3))
+def test_matvec_wrappers_raise_on_what_the_kernels_do_not_take(case):
+    """The matvec wrappers check every input before a launch and raise on
+    what the kernels do not take; well-formed inputs off the CPU and off
+    the card (the meta device) pass the checks and raise only for the
+    device."""
+    args = _matvec_args()
+    if case >= len(_MATVEC_BAD):
+        name = list(_WRAPPERS)[case - len(_MATVEC_BAD)]
+        with pytest.raises(ValueError, match="unsupported device"):
+            _WRAPPERS[name](*args[name])
+        return
+    name, i, change, exc, msg = _MATVEC_BAD[case]
+    bad = list(args[name])
+    bad[i] = change(bad[i])
+    with pytest.raises(exc, match=msg):
+        _WRAPPERS[name](*bad)
