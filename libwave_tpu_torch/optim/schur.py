@@ -104,51 +104,58 @@ def pack_observations(pose_idx, lm_idx, num_poses, num_landmarks, *arrays,
     tensors on ``device`` (default: the card), dtypes as given (indices
     int32). The layout's landmark segments hold the real slots only: padding
     carries zero weight, so leaving it out changes no sum.
+
+    Spanned as ``schur.pack_observations`` (host work and the copies to
+    ``device``); adds the bank's slots and its padded slots to the
+    counters ``schur.ell_slots`` and ``schur.ell_padding_slots``.
     """
-    device = resolve(device)
-    pose_idx = _host(pose_idx)
-    lm_idx = _host(lm_idx)
-    counts = onp.bincount(pose_idx, minlength=num_poses)
-    Pmax = max(int(counts.max()), min_pmax)
-    K_ell = num_poses * Pmax
+    with span("schur.pack_observations"):
+        device = resolve(device)
+        pose_idx = _host(pose_idx)
+        lm_idx = _host(lm_idx)
+        counts = onp.bincount(pose_idx, minlength=num_poses)
+        Pmax = max(int(counts.max()), min_pmax)
+        K_ell = num_poses * Pmax
 
-    # slot index of every original observation
-    order = onp.argsort(pose_idx, kind="stable")
-    slot = onp.full(K_ell, -1, dtype=onp.int64)  # -> original obs or -1
-    pos = 0
-    for n in range(num_poses):
-        c = int(counts[n])
-        slot[n * Pmax:n * Pmax + c] = order[pos:pos + c]
-        pos += c
-    pad_mask = (slot >= 0).astype(onp.float64)
-    safe = onp.where(slot >= 0, slot, 0)
+        # slot index of every original observation
+        order = onp.argsort(pose_idx, kind="stable")
+        slot = onp.full(K_ell, -1, dtype=onp.int64)  # -> original obs or -1
+        pos = 0
+        for n in range(num_poses):
+            c = int(counts[n])
+            slot[n * Pmax:n * Pmax + c] = order[pos:pos + c]
+            pos += c
+        count("schur.ell_slots", K_ell)
+        count("schur.ell_padding_slots", K_ell - pos)
+        pad_mask = (slot >= 0).astype(onp.float64)
+        safe = onp.where(slot >= 0, slot, 0)
 
-    if lm_idx.shape[0] == 0:
-        lm_ell = onp.zeros(K_ell, dtype=onp.int32)
-    else:
-        lm_ell = onp.where(slot >= 0, lm_idx[safe], 0).astype(onp.int32)
-    pose_ell = onp.repeat(onp.arange(num_poses, dtype=onp.int32), Pmax)
-
-    packed = []
-    for a in arrays:
-        a = _host(a)
-        if a.shape[0] == 0:
-            out = onp.zeros((K_ell,) + a.shape[1:], dtype=a.dtype)
+        if lm_idx.shape[0] == 0:
+            lm_ell = onp.zeros(K_ell, dtype=onp.int32)
         else:
-            out = a[safe] * pad_mask.reshape(
-                (K_ell,) + (1,) * (a.ndim - 1)
-            ).astype(a.dtype)
-        packed.append(torch.as_tensor(out, device=device))
+            lm_ell = onp.where(slot >= 0, lm_idx[safe], 0).astype(onp.int32)
+        pose_ell = onp.repeat(onp.arange(num_poses, dtype=onp.int32), Pmax)
 
-    ell = build_ell_layout(lm_ell, num_landmarks, valid=slot >= 0,
-                           device=device)
-    return (
-        torch.as_tensor(pose_ell, device=device),
-        torch.as_tensor(lm_ell, device=device),
-        torch.as_tensor(pad_mask, device=device),
-        ell,
-        *packed,
-    )
+        packed = []
+        for a in arrays:
+            a = _host(a)
+            if a.shape[0] == 0:
+                out = onp.zeros((K_ell,) + a.shape[1:], dtype=a.dtype)
+            else:
+                out = a[safe] * pad_mask.reshape(
+                    (K_ell,) + (1,) * (a.ndim - 1)
+                ).astype(a.dtype)
+            packed.append(torch.as_tensor(out, device=device))
+
+        ell = build_ell_layout(lm_ell, num_landmarks, valid=slot >= 0,
+                               device=device)
+        return (
+            torch.as_tensor(pose_ell, device=device),
+            torch.as_tensor(lm_ell, device=device),
+            torch.as_tensor(pad_mask, device=device),
+            ell,
+            *packed,
+        )
 
 
 def build_ell_layout(lm_idx, num_landmarks, valid=None,
@@ -157,17 +164,19 @@ def build_ell_layout(lm_idx, num_landmarks, valid=None,
     slots sorted by landmark (stable) and the CSR bounds of every landmark
     in that order. Slots where ``valid`` is False (ELL padding) are sorted
     after every landmark and belong to no segment; by default every slot
-    counts. Tensors on ``device`` (default: the card)."""
-    lm_idx = _host(lm_idx).astype(onp.int64)
-    key = lm_idx if valid is None else onp.where(
-        _host(valid), lm_idx, num_landmarks)
-    sigma = onp.argsort(key, kind="stable").astype(onp.int32)
-    offsets = onp.searchsorted(key[sigma], onp.arange(num_landmarks + 1))
-    device = resolve(device)
-    return EllLayout(
-        sigma=torch.as_tensor(sigma, device=device),
-        offsets=torch.as_tensor(offsets.astype(onp.int32), device=device),
-    )
+    counts. Tensors on ``device`` (default: the card). Spanned as
+    ``schur.build_ell_layout``."""
+    with span("schur.build_ell_layout"):
+        lm_idx = _host(lm_idx).astype(onp.int64)
+        key = lm_idx if valid is None else onp.where(
+            _host(valid), lm_idx, num_landmarks)
+        sigma = onp.argsort(key, kind="stable").astype(onp.int32)
+        offsets = onp.searchsorted(key[sigma], onp.arange(num_landmarks + 1))
+        device = resolve(device)
+        return EllLayout(
+            sigma=torch.as_tensor(sigma, device=device),
+            offsets=torch.as_tensor(offsets.astype(onp.int32), device=device),
+        )
 
 
 @dataclasses.dataclass(frozen=True)

@@ -138,3 +138,28 @@ def test_batched_solve_has_one_iteration_span_per_batched_iteration():
     assert rec.counters["ba.lm_iterations"] == ITERATIONS
     assert rec.counters["schur.cg_trips"] == 2 * ITERATIONS * CG
     assert {s.solve for s in rec.spans} == {0}
+
+
+def test_packing_records_its_spans_and_slot_counters():
+    from libwave_tpu_torch.optim import schur
+
+    # 3 poses seeing 4, 1 and 2 of 5 landmarks: Pmax 4, 12 slots, 5 padded
+    pose_idx = torch.tensor([0, 2, 0, 1, 0, 2, 0], dtype=torch.int32)
+    lm_idx = torch.tensor([0, 1, 2, 3, 4, 0, 1], dtype=torch.int32)
+    uv = torch.arange(14, dtype=torch.float32).reshape(7, 2)
+    with trace.recording() as rec:
+        packed = schur.pack_observations(pose_idx, lm_idx, 3, 5, uv,
+                                         device="cpu")
+    assert [s.name for s in rec.spans] == ["schur.pack_observations",
+                                           "schur.build_ell_layout"]
+    outer, inner = rec.spans
+    assert outer.parent is None and inner.parent == 0
+    assert outer.start_ns <= inner.start_ns <= inner.end_ns <= outer.end_ns
+    assert rec.counters["schur.ell_slots"] == packed[0].shape[0] == 12
+    assert rec.counters["schur.ell_padding_slots"] == 12 - 7
+    assert int((packed[2] == 0).sum()) == 5
+
+    with trace.recording() as rec:
+        pass
+    schur.pack_observations(pose_idx, lm_idx, 3, 5, uv, device="cpu")
+    assert rec.spans == [] and not rec.counters["schur.ell_slots"]
