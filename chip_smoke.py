@@ -12,6 +12,7 @@ it imports no JAX. Phases, each reported on its own line:
 2. build: compiles ``libwave_tpu_torch/csrc/segmm_g_a.cu``,
    ``libwave_tpu_torch/csrc/segmm_seg.cu``,
    ``libwave_tpu_torch/csrc/schur_matvec.cu``,
+   ``libwave_tpu_torch/csrc/schur_pcg.cu``,
    ``libwave_tpu_torch/csrc/hamming.cu`` and
    ``libwave_tpu_torch/csrc/table_designs.cu`` (the first table kernel and
    the tensor-core rate probe) for sm_90a, one nvcc each, started together,
@@ -66,7 +67,10 @@ it imports no JAX. Phases, each reported on its own line:
    preconditioner) and 20 launches of each matvec kernel (W^T x, the
    Hll^-1 step, the pose side: each CG step's matvec is those and a
    reduce), every matvec on that fused path (the ``schur.matvec_fused``
-   counter over ``schur.cg_trips``), no G/A launch, no synchronizing call,
+   counter over ``schur.cg_trips``) and every CG trip through the trip
+   kernel (``schur.cg_fused`` over ``schur.cg_trips``, one ``pcg_trip``
+   call a trip), no G/A launch, no synchronizing call (and ``pcg`` at the
+   first linearization under sync debug mode "error"),
    the first iteration within rtol 1e-3 of the same solve through the
    plain crossings, the final cost finite and below the initial; LM
    iterations/s through the kernels and through the plain crossings in
@@ -80,9 +84,15 @@ it imports no JAX. Phases, each reported on its own line:
    side's 1,024-thread blocks) held to their plain versions (wt_slots and
    landmark_step bit for bit, pose_side within 1e-5 of its terms'
    magnitudes, two runs bit-identical) and timed beside their bounds; the
-   headline solve from six seeds through the fused matvec, the plain one
-   and the CPU in f32, each held to the CPU's f64 solve (the fused
-   solve's median distance within 2x the others'); and
+   CG trip kernel at venice-mf's and final-13682-mf's pose counts (1,778
+   and 13,682, D = 6 and 15; ``bench_problem.PCG_TRIP_CASES``) held to its
+   plain version (within 1e-5 of each output's magnitude, a frozen trip
+   bit for bit, two runs bit-identical) and timed at D = 6 beside its
+   bound and the eager loop body's time; the headline solve from six
+   seeds through the fused matvec and trip, the plain matvec, the plain
+   CG loop and the CPU in f32, each held to the CPU's f64 solve (the
+   fused solve's and the plain CG loop's median distances each within 2x
+   the larger of the plain matvec's and the CPU f32 solve's); and
    ``bench_problem.matvec_profile`` (matvec ms at 300 to 2,400 observations
    per pose, the fit, the split by op);
 7. ba_dataset: ``tests/test_ba.py``'s dataset (100 landmarks from
@@ -479,6 +489,10 @@ MATVEC_SOURCE = "libwave_tpu_torch/csrc/schur_matvec.cu"
 # the matvec kernels replace no Pallas kernel: the JAX package's
 # schur_matvec (libwave_tpu/optim/schur.py:653) is one XLA fusion
 MATVEC_REPLACES = None
+PCG_SOURCE = "libwave_tpu_torch/csrc/schur_pcg.cu"
+# nor does the CG trip: the JAX package runs pcg's loop body as one XLA
+# fusion inside lax.scan (libwave_tpu/optim/schur.py:1089)
+PCG_REPLACES = None
 REDUCE_REPLACES = "libwave_tpu/ops/segmm.py:65"
 BROADCAST_REPLACES = "libwave_tpu/ops/segmm.py:117"
 # the H100 SXM's published HBM rate and non-tensor f32 rate (NVIDIA's data
@@ -696,14 +710,22 @@ MATVEC_COUNTED = {
 
 def reset_launches():
     """Set every kernel's launch count to 0."""
-    for fn in (*COUNTED.values(), *MATVEC_COUNTED.values()):
+    for fn in (*COUNTED.values(), *MATVEC_COUNTED.values(), segmm.pcg_trip):
         fn.launches = 0
 
 
 def launch_counts():
     """Every kernel's launch count since the last reset, but the
-    matvec's."""
-    return {name: fn.launches for name, fn in COUNTED.items()}
+    matvec's; ``pcg_trip`` counts the CG trip kernel's calls (one a CG
+    trip of a float32 solve on the card)."""
+    return {**{name: fn.launches for name, fn in COUNTED.items()},
+            "pcg_trip": segmm.pcg_trip.launches}
+
+
+def cg_trips(cfg, dtype):
+    """Calls of the CG trip kernel one ``schur.pcg`` solve at ``cfg`` makes
+    on the card: every trip in float32, none in f64."""
+    return cfg.cg_max_iters if dtype == torch.float32 else 0
 
 
 def matvec_launches():
@@ -730,6 +752,7 @@ def phase_build():
     """One nvcc per source, all started together."""
     builds = ((KERNEL_SOURCE, segmm.build), (SEG_SOURCE, segmm.build_seg),
               (MATVEC_SOURCE, segmm.build_matvec),
+              (PCG_SOURCE, segmm.build_pcg),
               (HAMMING_SOURCE, hamming.build),
               (TABLE_DESIGNS_SOURCE,
                lambda: bench_designs.table_library()[1]))
@@ -972,9 +995,11 @@ def phase_headline(problem, state, cfg, smi):
         )
     # per LM iteration: 13 G/A calls; the Hll and bl reduces of the normal
     # equations and back-substitution's reduce; schur_rhs's broadcast (the
-    # explicit-S preconditioner is read off S: no broadcast)
+    # explicit-S preconditioner is read off S: no broadcast); one trip
+    # kernel call a CG trip
     want = dict(segmm_g_a=BAND_CALLS * LM_ITERS, seg_reduce=3 * LM_ITERS,
-                seg_broadcast=LM_ITERS, hamming_top2=0, hamming_table=0)
+                seg_broadcast=LM_ITERS, hamming_top2=0, hamming_table=0,
+                pcg_trip=cg_trips(cfg, state.p.dtype) * LM_ITERS)
     check(counts == want, f"headline: launches {counts} in {LM_ITERS} LM "
           f"iterations, expected {want}")
     launches_ga = counts["segmm_g_a"]
@@ -987,7 +1012,8 @@ def phase_headline(problem, state, cfg, smi):
     check(costs[-1] < c0, f"final cost {costs[-1]} not below initial {c0}")
     print(f"headline: explicit-S path, {launches_ga} G/A, "
           f"{counts['seg_reduce']} reduce and {counts['seg_broadcast']} "
-          f"broadcast kernel launches in {LM_ITERS} LM iterations, TF32 "
+          f"broadcast kernel launches and {counts['pcg_trip']} CG trip "
+          f"kernel calls in {LM_ITERS} LM iterations, TF32 "
           f"off, no synchronizing call detected inside solve_ba; cost "
           f"{c0:.6e} -> "
           f"{costs[-1]:.6e}, accepted "
@@ -995,7 +1021,7 @@ def phase_headline(problem, state, cfg, smi):
     per_iter = _launches_per_iteration()
     print(f"headline: one explicit-S LM iteration runs {per_iter['kernels']} "
           f"CUDA kernels on the device ({per_iter['own_kernels']} of them "
-          f"the package's: G/A, reduce, broadcast), "
+          f"the package's: G/A, reduce, broadcast, CG trip), "
           f"{per_iter['launch_calls']} runtime launch calls on the host "
           f"(torch.profiler, libwave_tpu_torch/launch_count.py); the tree "
           f"before the window entry point ran {KERNELS_BEFORE_WINDOW} "
@@ -1265,7 +1291,9 @@ def _held_run(what, fn, counts):
         fn()
     torch.cuda.synchronize()
     held = {k: v["calls"] for k, v in stats.items()}
-    want = {k: v for k, v in counts.items() if v}
+    # the CG trip kernel is not held: its plain version is held to it in
+    # phase_matrix_free
+    want = {k: v for k, v in counts.items() if v and k != "pcg_trip"}
     check(held == want, f"{what}: {held} calls held to the plain versions, "
           f"{want} launches counted")
     return ", ".join(f"{k} {v['calls']} calls (max abs err "
@@ -1320,7 +1348,8 @@ def phase_matrix_free(problem, state, smi):
     # blocks; each CG matvec also W^T x, the Hll^-1 step and the pose side
     # (which gathers y itself)
     want = dict(segmm_g_a=0, seg_reduce=(3 + cg) * LM_ITERS,
-                seg_broadcast=2 * LM_ITERS, hamming_top2=0, hamming_table=0)
+                seg_broadcast=2 * LM_ITERS, hamming_top2=0, hamming_table=0,
+                pcg_trip=cg * LM_ITERS)
     check(counts == want, f"matrix_free: launches {counts}, expected {want}")
     want = dict.fromkeys(MATVEC_COUNTED, cg * LM_ITERS)
     check(mv_counts == want, f"matrix_free: matvec launches {mv_counts}, "
@@ -1329,6 +1358,11 @@ def phase_matrix_free(problem, state, smi):
                     rec.counters["schur.cg_trips"])
     check(fused == trips == cg * LM_ITERS, f"matrix_free: {fused} of "
           f"{trips} matvecs on the fused path")
+    cg_fused = rec.counters["schur.cg_fused"]
+    pcg_calls = counts["pcg_trip"]
+    check(cg_fused == trips == pcg_calls,
+          f"matrix_free: {cg_fused} of {trips} CG trips fused, "
+          f"{pcg_calls} trip kernel calls")
     c0 = float(info["initial_cost"])
     costs = info["costs"].cpu().numpy().astype(np.float64)
     check(np.isfinite(c0) and np.isfinite(costs).all() and costs[-1] < c0,
@@ -1346,7 +1380,8 @@ def phase_matrix_free(problem, state, smi):
           f"steps, as worked out from the code), "
           + ", ".join(f"{v} {k}" for k, v in mv_counts.items())
           + f" launches ({cg} per iteration each); the fused path took "
-          f"{fused} of {trips} matvecs ({100.0 * fused / trips:.1f}%); no "
+          f"{fused} of {trips} matvecs ({100.0 * fused / trips:.1f}%), the "
+          f"trip kernel {cg_fused} of {trips} CG trips; no "
           f"G/A launch, no synchronizing call; cost {c0:.6e} -> "
           f"{costs[-1]:.6e}; the plain crossings' trajectory differs by at "
           f"most {rel.max():.3e} (first iteration {rel[0]:.3e}, rtol "
@@ -1371,8 +1406,10 @@ def phase_matrix_free(problem, state, smi):
           f"f64 one, the plain {err['plain']:.3e}")
     print(f"matrix_free: f32 matvec against f64 (2-norm, relative): fused "
           f"{err['fused']:.3e}, plain {err['plain']:.3e}")
+    _pcg_sync_free(blocks, cfg)
     del blocks, x
     mv_stats = _matvec_cell(smi)
+    mv_stats["pcg_trip"] = _pcg_trip_cells(smi)
     _solve_witness(cfg, problem.uv.device, smi)
     rates = {"kernel": [], "plain": []}
     final = {}
@@ -1435,26 +1472,87 @@ def _matvec_cell(smi):
     return out
 
 
+def _pcg_sync_free(blocks, cfg):
+    """``schur.pcg`` on ``blocks`` (the headline's first linearization)
+    under PyTorch's sync debug mode "error": a host read inside the CG
+    loop raises. Every trip through the trip kernel, one call each."""
+    rhs = schur.schur_rhs(blocks)
+    torch.cuda.synchronize()
+    before = segmm.pcg_trip.launches
+    with trace.recording() as rec:
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            cg = schur.pcg(blocks, rhs, cfg.cg_max_iters, cfg.cg_tol)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    trips = rec.counters["schur.cg_trips"]
+    check(rec.counters["schur.cg_fused"] == trips == cfg.cg_max_iters
+          == segmm.pcg_trip.launches - before,
+          f"matrix_free: pcg under sync debug 'error': {dict(rec.counters)}")
+    print(f"matrix_free: pcg at the headline's first linearization ran its "
+          f"{trips} CG trips through the trip kernel under sync debug mode "
+          f"'error' (no host read inside the loop): {int(cg.iterations)} "
+          f"live trips, residual {float(cg.residual_norm):.6e}")
+
+
+def _pcg_trip_cells(smi):
+    """The CG trip kernel on random operands at each of
+    ``bench_problem.PCG_TRIP_CASES`` (venice-mf's and final-13682-mf's pose
+    counts, D = 6 and 15), held to its plain version (x, r, z, p, rz and
+    rr within 1e-5 of their largest magnitude, counts equal, a frozen trip
+    keeping x, r and rz bit for bit, two runs bit-identical), then timed
+    beside its bound and the eager loop body's time. Returns its entry
+    stats for the ``kernels`` line (the venice-mf shape's)."""
+    rows, stats = [], None
+    for N, D, free_cols in bench_problem.PCG_TRIP_CASES:
+        a = bench_problem.pcg_trip_operands(N, D, free_cols,
+                                            device=torch.device("cuda:0"))
+        err = bench_problem.pcg_trip_errors(a)
+        worst = max(max(err["rel"].values()), max(err["rel_frozen"].values()))
+        check(err["it_equal"] and err["same_bits"] and err["frozen_kept"]
+              and err["fixed_zero"] and worst <= 1e-5,
+              f"matrix_free: the CG trip kernel at N {N}, D {D} against "
+              f"its plain version: {err}")
+        t = bench_problem.pcg_trip_times(a)
+        bound_ms, bound_by = bound(t["bytes"])
+        rows.append(f"N {N} D {D}: {t['ms']:.4f} (bound {bound_ms:.4f}, "
+                    f"{t['bytes'] / 1e6:.3f} MB; plain {t['plain_ms']:.4f}; "
+                    f"worst gap {worst:.3e})")
+        if stats is None:
+            stats = dict(max_abs_err=err["max_abs_err"], ms=t["ms"],
+                         plain_ms=t["plain_ms"], bound_ms=bound_ms,
+                         bound_by=bound_by, library_ms=None)
+    print(f"matrix_free: the CG trip kernel on random operands, held to its "
+          f"plain version (outputs within 1e-5 of their magnitude, a frozen "
+          f"trip bit for bit, two runs bit-identical); device ms a trip "
+          f"beside the bound and the eager loop body's: " + "; ".join(rows)
+          + f" | {smi}")
+    return stats
+
+
 # seeds of the headline problem the fused matrix-free solve is witnessed on
 WITNESS_SEEDS = (0, 1, 2, 3, 4, 5)
 
 
 def _solve_witness(cfg, dev, smi):
     """The matrix-free headline solve (``cfg``) from each of WITNESS_SEEDS
-    four ways: on the card through the fused matvec and through the plain
-    one, on the CPU in f32 and, the witness, in f64. Each f32 solve's
+    five ways: on the card through the fused matvec and CG trip, through
+    the plain matvec and through the plain CG loop, on the CPU in f32 and,
+    the witness, in f64. Each f32 solve's
     distance from the witness: the final state's RMS position difference
     (poses and landmarks, m), the final cost's excess (at the f32 floor,
     where every f32 solve ends far above the f64 one), and the largest
     relative cost difference over the iterations whose f64 cost is at least
     100x its final one (short of that floor); and, at the first
     linearization, 20 steps of PCG's solution's distance from the f64 PCG's
-    (relative 2-norm). The fused solve's median distance over the seeds
-    must be within 2x the larger of the two other f32 solves' medians:
-    f32 rounding, amplified by inexact CG steps, parts the f32 solves from
-    the witness; a defect of the fused matvec would part it further."""
+    (relative 2-norm). The fused solve's median distance over the seeds,
+    and the plain CG loop's, must each be within 2x the larger of the
+    plain matvec's and the CPU f32 solve's medians: f32 rounding, amplified
+    by inexact CG steps, parts the f32 solves from the witness; a defect
+    of the fused matvec or CG trip would part it further."""
     cpu = torch.device("cpu")
-    names = ("fused", "plain", "cpu_f32")
+    names = ("fused", "plain", "plain_cg", "cpu_f32")
+    plain = {"plain": "_takes_fused_matvec", "plain_cg": "_takes_fused_cg"}
     rows = {k: [] for k in names}
     for seed in WITNESS_SEEDS:
         problem, state = bench_problem.make_problem(seed=seed, device=dev)
@@ -1470,9 +1568,8 @@ def _solve_witness(cfg, dev, smi):
         for name in names:
             pr, st = ((to_device(problem, cpu), to_device(state, cpu))
                       if name == "cpu_f32" else (problem, state))
-            with (contextlib.nullcontext() if name == "fused" else
-                  mock.patch.object(schur, "_takes_fused_matvec",
-                                    return_value=False)):
+            with (mock.patch.object(schur, plain[name], return_value=False)
+                  if name in plain else contextlib.nullcontext()):
                 out, info = ba.solve_ba(pr, st, cfg)
                 lam = torch.tensor(cfg.init_lambda, device=st.p.device)
                 with precision.full_f32():
@@ -1491,15 +1588,19 @@ def _solve_witness(cfg, dev, smi):
            for k, v in rows.items()}
     for m in ("state", "cost", "path", "pcg"):
         ref = max(med["plain"][m], med["cpu_f32"][m])
-        check(med["fused"][m] <= 2 * ref, f"matrix_free witness: the fused "
-              f"solve's median {m} distance from the f64 solve "
-              f"{med['fused'][m]:.3e}, the other f32 solves' "
-              f"{med['plain'][m]:.3e} and {med['cpu_f32'][m]:.3e}: {rows}")
+        for k in ("fused", "plain_cg"):
+            check(med[k][m] <= 2 * ref, f"matrix_free witness: the {k} "
+                  f"solve's median {m} distance from the f64 solve "
+                  f"{med[k][m]:.3e}, the plain matvec's and the CPU f32 "
+                  f"solve's {med['plain'][m]:.3e} and "
+                  f"{med['cpu_f32'][m]:.3e}: {rows}")
     print(f"matrix_free witness: the headline solve ({LM_ITERS} LM, "
           f"{cfg.cg_max_iters} CG, matrix-free) from seeds "
           f"{list(WITNESS_SEEDS)} against the same solve in f64 on the CPU; "
-          f"medians over the seeds (fused / plain matvec on the card / CPU "
-          f"f32; each within 2x of the larger other): " + "; ".join(
+          f"medians over the seeds (fused / plain matvec on the card / "
+          f"plain CG loop on the card / CPU f32; the fused and the plain CG "
+          f"loop each within 2x of the larger of the plain matvec and CPU "
+          f"f32): " + "; ".join(
               f"{m} " + " / ".join(f"{med[k][m]:.3e}" for k in names)
               for m in ("state", "cost", "path", "pcg"))
           + " | per seed: " + json.dumps(rows) + f" | {smi}")
@@ -1524,8 +1625,8 @@ def _solve_counted(what, fn, iters, want_per_iter):
     stray = sorted(set(syncs) - _linalg_sites())
     check(not stray, f"{what}: synchronizing calls outside torch.linalg: "
           f"{ {k: syncs[k] for k in stray} }")
-    want = dict(hamming_top2=0, hamming_table=0,
-                **{k: v * iters for k, v in want_per_iter.items()})
+    want = {"hamming_top2": 0, "hamming_table": 0, "pcg_trip": 0,
+            **{k: v * iters for k, v in want_per_iter.items()}}
     check(counts == want, f"{what}: launches {counts}, expected {want}")
     return out, counts
 
@@ -1603,7 +1704,8 @@ def phase_ba_dataset(dev, smi):
         t0 = time.perf_counter()
         (out, info), counts = _solve_counted(
             f"ba_dataset {name}", lambda: ba.solve_ba(pr, init, cfg), iters,
-            dict(segmm_g_a=1, seg_reduce=3, seg_broadcast=1))
+            dict(segmm_g_a=1, seg_reduce=3, seg_broadcast=1,
+                 pcg_trip=cg_trips(cfg, init.p.dtype)))
         solve_s = time.perf_counter() - t0
         held = _held_run(f"ba_dataset {name}",
                          lambda: ba.solve_ba(pr, init, cfg), counts)
@@ -1660,7 +1762,8 @@ def phase_ba_dataset(dev, smi):
               f"{cpu_s:.3f} s on the CPU | {smi}")
 
 
-def _batched_checked(what, problems, states, cfg, own, calls_per_iter):
+def _batched_checked(what, problems, states, cfg, own, calls_per_iter,
+                     trips_per_iter):
     """``solve_ba_batched`` of the windows: counted and sync-free, each
     window held to its own solve (``own``: (costs, accepted) per window),
     then solved again with every kernel call held to its plain version.
@@ -1669,7 +1772,8 @@ def _batched_checked(what, problems, states, cfg, own, calls_per_iter):
     B, iters = len(problems), cfg.max_iterations
     (_, info), counts = _solve_counted(
         what, lambda: ba.solve_ba_batched(problems, states, cfg), iters,
-        dict(segmm_g_a=calls_per_iter, seg_reduce=3, seg_broadcast=1))
+        dict(segmm_g_a=calls_per_iter, seg_reduce=3, seg_broadcast=1,
+             pcg_trip=trips_per_iter))
     costs = info["costs"].cpu()
     accepted = info["accepted"].cpu()
     worst, exact = 0.0, 0
@@ -1688,8 +1792,10 @@ def _batched_checked(what, problems, states, cfg, own, calls_per_iter):
                      counts)
     print(f"ba_batched: {what}: per LM iteration {counts['segmm_g_a'] // iters}"
           f" G/A, {counts['seg_reduce'] // iters} reduce, "
-          f"{counts['seg_broadcast'] // iters} broadcast launches (the code: "
-          f"{calls_per_iter}, 3, 1), no sync outside torch.linalg; every "
+          f"{counts['seg_broadcast'] // iters} broadcast launches, "
+          f"{counts['pcg_trip'] // iters} CG trip kernel calls (the code: "
+          f"{calls_per_iter}, 3, 1, {trips_per_iter}), no sync outside "
+          f"torch.linalg; every "
           f"window's accept flags equal its own solve_ba's, costs within "
           f"{worst:.2e} (rtol 1e-5), {exact}/{B} bit for bit; accepted "
           f"{int(accepted.sum())}/{B * iters}; held to the plain versions: "
@@ -1713,15 +1819,18 @@ def phase_ba_batched(dev, smi):
             ba.solve_ba(p, s, cfg)[1] for p, s in zip(problems, states))]
         print(f"ba_batched: 32 own solve_ba runs ({name}) in "
               f"{time.perf_counter() - t0:.3f} s")
-    # PCG on the card takes explicit S with each window's band plan
+    # PCG on the card takes explicit S with each window's band plan, one
+    # pcg a window
     pcg_calls = sum(len(_band_calls(p.bands)) for p in problems)
+    pcg_trips = 32 * cg_trips(cfg_pcg, states[0].p.dtype)
     counts = {}
-    for what, n, cfg, calls in (("B = 8 dense", 8, cfg_dense, 8),
-                                ("B = 32 dense", 32, cfg_dense, 32),
-                                ("B = 32 PCG", 32, cfg_pcg, pcg_calls)):
+    for what, n, cfg, calls, trips in (
+            ("B = 8 dense", 8, cfg_dense, 8, 0),
+            ("B = 32 dense", 32, cfg_dense, 32, 0),
+            ("B = 32 PCG", 32, cfg_pcg, pcg_calls, pcg_trips)):
         counts[what], _ = _batched_checked(
             what, problems[:n], states[:n], cfg,
-            own["dense" if cfg is cfg_dense else "pcg"], calls)
+            own["dense" if cfg is cfg_dense else "pcg"], calls, trips)
     t0 = time.perf_counter()
     rates = bench_problem.bench_ba_batched(problems, states)
     print(f"ba_batched: rates (LM iterations/s, aggregate; "
@@ -1748,7 +1857,8 @@ def phase_ba_large(dev, smi):
     torch.cuda.reset_peak_memory_stats(dev)
     (_, info), counts = _solve_counted(
         "ba_large", lambda: ba.solve_ba(problem, state, cfg), BA_LARGE_ITERS,
-        dict(segmm_g_a=len(calls), seg_reduce=3, seg_broadcast=1))
+        dict(segmm_g_a=len(calls), seg_reduce=3, seg_broadcast=1,
+             pcg_trip=cg_trips(cfg, state.p.dtype)))
     peak = torch.cuda.max_memory_allocated(dev)
     c0 = float(info["initial_cost"])
     costs = info["costs"].cpu().numpy().astype(np.float64)
@@ -1764,7 +1874,9 @@ def phase_ba_large(dev, smi):
           f"with the plain G/A")
     rate = bench_problem.bench_ba_large(problem, state)
     print(f"ba_large: explicit S, per LM iteration {len(calls)} G/A, 3 "
-          f"reduce, 1 broadcast launches (as the code works them out), no "
+          f"reduce, 1 broadcast launches and "
+          f"{counts['pcg_trip'] // BA_LARGE_ITERS} CG trip kernel calls (as "
+          f"the code works them out), no "
           f"sync outside torch.linalg; cost {c0:.6e} -> {costs[-1]:.6e}, "
           f"accepted {int(info['accepted'].sum())}/{BA_LARGE_ITERS}; first "
           f"iteration {rel:.3e} from the plain-G/A solve (rtol 1e-3); held "
@@ -1817,13 +1929,16 @@ def phase_vio(dev, smi):
     linalg_sites = _linalg_sites()
     # per LM iteration, dense: reduces of Hll, bl and back-substitution,
     # schur_rhs's broadcast, one G/A build; PCG: as the matrix-free BA
-    # path, with cg_max_iters matvecs on the fused path
+    # path, with cg_max_iters matvecs on the fused path and as many CG
+    # trip kernel calls (D = 15)
+    trips = cg_trips(bench_problem.vio_config("pcg"), init.p.dtype)
     wants = {
         "auto": (dict(segmm_g_a=it, seg_reduce=3 * it, seg_broadcast=it,
-                      hamming_top2=0, hamming_table=0),
+                      hamming_top2=0, hamming_table=0, pcg_trip=0),
                  dict.fromkeys(MATVEC_COUNTED, 0)),
         "pcg": (dict(segmm_g_a=0, seg_reduce=(3 + cg) * it,
-                     seg_broadcast=2 * it, hamming_top2=0, hamming_table=0),
+                     seg_broadcast=2 * it, hamming_top2=0, hamming_table=0,
+                     pcg_trip=trips * it),
                 dict.fromkeys(MATVEC_COUNTED, cg * it)),
     }
     cpu = torch.device("cpu")
@@ -1861,7 +1976,8 @@ def phase_vio(dev, smi):
         print(f"vio {solver}: {counts['segmm_g_a']} G/A, "
               f"{counts['seg_reduce']} reduce and {counts['seg_broadcast']} "
               f"broadcast launches, {mv_counts['matvec_pose_side']} of each "
-              f"matvec kernel in {it} LM iterations (as worked out from "
+              f"matvec kernel, {counts['pcg_trip']} CG trip kernel calls "
+              f"in {it} LM iterations (as worked out from "
               f"the code); synchronizing calls: {listed}; cost {c0:.6e} -> "
               f"{cost:.6e} (CPU, plain versions: {cost_cpu:.6e}, ATE "
               f"{_ate(gt, est_cpu):.6f} m; keyframe positions within "
@@ -1903,7 +2019,7 @@ def phase_euroc(dev, smi):
         # and M <= dense_max_landmarks): one G/A build, the reduces of Hll,
         # bl and back-substitution, schur_rhs's broadcast
         want = dict(segmm_g_a=it, seg_reduce=3 * it, seg_broadcast=it,
-                    hamming_top2=0, hamming_table=0)
+                    hamming_top2=0, hamming_table=0, pcg_trip=0)
         reset_launches()
         (state, info), syncs = _sync_free(
             lambda: vio.solve_vio(problem, init, cfg))
@@ -1977,23 +2093,25 @@ def _sites(counter):
                      for k, v in sorted(counter.items())) or "none"
 
 
-def _windowed_launches(iters, n_marg):
-    """Per dense LM iteration: 1 G/A build, the reduces of Hll, bl and
-    back-substitution, schur_rhs's broadcast; per Schur complement
+def _windowed_launches(iters, n_marg, trips_per_iter=0):
+    """Per dense (or explicit-S) LM iteration: 1 G/A build, the reduces of
+    Hll, bl and back-substitution, schur_rhs's broadcast, and
+    ``trips_per_iter`` CG trip kernel calls; per Schur complement
     (``vio_marginalize_device``, ``vio_reduced_hessian`` or
     ``ba_reduced_hessian``): 1 G/A, the reduces of Hll and bl, 1
     broadcast."""
     return dict(segmm_g_a=iters + n_marg, seg_reduce=3 * iters + 2 * n_marg,
                 seg_broadcast=iters + n_marg, hamming_top2=0,
-                hamming_table=0)
+                hamming_table=0, pcg_trip=trips_per_iter * iters)
 
 
-def _solver_checked(what, fn, n_marg_of, sync_debug=True):
+def _solver_checked(what, fn, n_marg_of, sync_debug=True, trips_per_iter=0):
     """Drive ``fn`` (a windowed solve returning its report last) with the
     launch counts set to 0 and, with ``sync_debug``, PyTorch's sync debug
     mode on (it slows each LM iteration by a third to a half); check the
-    launches against the code's (``n_marg_of(report)`` complements) and
-    that no solver entry point synchronized outside ``torch.linalg``."""
+    launches against the code's (``n_marg_of(report)`` complements,
+    ``trips_per_iter`` CG trip kernel calls an LM iteration) and that no
+    solver entry point synchronized outside ``torch.linalg``."""
     reset_launches()
     if sync_debug:
         out, inside, host = _sync_free(fn, _solver_entry_points())
@@ -2002,7 +2120,7 @@ def _solver_checked(what, fn, n_marg_of, sync_debug=True):
     counts = launch_counts()
     rep = out[-1]
     iters = sum(rep["window_iterations"])
-    want = _windowed_launches(iters, n_marg_of(rep))
+    want = _windowed_launches(iters, n_marg_of(rep), trips_per_iter)
     check(counts == want, f"{what}: launches {counts} in {iters} LM "
           f"iterations, expected {want}")
     stray = sorted(set(inside or ()) - _linalg_sites())
@@ -2206,9 +2324,11 @@ def phase_windowed_ba(dev, smi):
     N = c["num_frames"]
     wp = windowed_ba.WindowedBAParams(window=60, overlap=10)
     cfg = ba.BAConfig(max_iterations=40, cg_max_iters=150, huber_delta=3.0)
+    # explicit-S PCG in f32: every CG trip through the trip kernel
+    trips = cg_trips(cfg, torch.float32)
     (q, p, rep), counts, inside, host = _solver_checked(
         "windowed_ba", lambda: _wba_run(c, N, wp, cfg, dev),
-        lambda r: r["num_windows"] - 1)
+        lambda r: r["num_windows"] - 1, trips_per_iter=trips)
     pos = float(np.linalg.norm(p - c["p_gt"], axis=-1).max())
     rot = float(so3.rotation_distance(torch.as_tensor(q),
                                       torch.as_tensor(c["q_gt"])).max())
@@ -2221,7 +2341,7 @@ def phase_windowed_ba(dev, smi):
     two = wp.window + (wp.window - wp.overlap)
     (_, p2, rep2), _, _, _ = _solver_checked(
         "windowed_ba 2 windows", lambda: _wba_run(c, two, wp, cfg, dev),
-        lambda r: r["num_windows"] - 1)
+        lambda r: r["num_windows"] - 1, trips_per_iter=trips)
     t0 = time.perf_counter()
     _, p_c, rep_c = _wba_run(c, two, wp, dataclasses.replace(
         cfg, explicit_s="always"), torch.device("cpu"))
@@ -2240,7 +2360,8 @@ def phase_windowed_ba(dev, smi):
           f"{rep['num_windows']} windows of {rep['window']} (overlap "
           f"{rep['overlap']}), f32; {counts['segmm_g_a']} G/A, "
           f"{counts['seg_reduce']} reduce and {counts['seg_broadcast']} "
-          f"broadcast launches in {iters} LM iterations and "
+          f"broadcast launches and {counts['pcg_trip']} CG trip kernel "
+          f"calls in {iters} LM iterations and "
           f"{rep['num_windows'] - 1} reduced Hessians (explicit-S PCG, as "
           f"worked out from the code); synchronizing calls inside the "
           f"solvers: {_sites(inside)}; in the host loop: {_sites(host)}")
@@ -2989,7 +3110,7 @@ def phase_pixels(dev, smi):
         check(np.array_equal(frames, euroc_sim.cam0_frames(p, seed=0)),
               "pixels: the decoded PNGs differ from the rendered frames")
         want = dict(segmm_g_a=it, seg_reduce=3 * it, seg_broadcast=it,
-                    hamming_top2=T, hamming_table=0)
+                    hamming_top2=T, hamming_table=0, pcg_trip=0)
         reset_launches()
         _, rep = euroc_vio.run_euroc_vio_from_images(
             root, params, K=K, generator=_gen(dev, 0), device=dev)
@@ -3167,7 +3288,7 @@ def phase_orb(frames, dev, smi, popc_rate):
     tracks, dt = run(plain=False)
     counts = launch_counts()
     want = dict(segmm_g_a=0, seg_reduce=0, seg_broadcast=0,
-                hamming_top2=len(frames), hamming_table=0)
+                hamming_top2=len(frames), hamming_table=0, pcg_trip=0)
     check(counts == want, f"orb: launches {counts}, expected {want}")
     tracks_p, dt_p = run(plain=True)
     check(np.array_equal(tracks, tracks_p), "orb: tracks with the top-2 "
@@ -3391,7 +3512,7 @@ def phase_batched(frames, dev, smi):
         generators=[_gen(dev, b) for b in range(BATCH)]))
     counts = launch_counts()
     want = dict(segmm_g_a=0, seg_reduce=0, seg_broadcast=0,
-                hamming_top2=BATCH * T, hamming_table=0)
+                hamming_top2=BATCH * T, hamming_table=0, pcg_trip=0)
     check(counts == want, f"batched: launches {counts}, expected {want}")
     singles = []
     for b in range(BATCH):
@@ -4277,9 +4398,11 @@ def _same_on_ranks(what, outs, keys):
 def _check_dist_ba(outs, world, refs, smi):
     r0 = outs[0]
     cg = _dist_cfg().cg_max_iters
+    # the sharded solve's CG vectors are full replicas: every trip through
+    # the trip kernel
     want = dict(segmm_g_a=0, seg_reduce=(3 + cg) * LM_ITERS,
                 seg_broadcast=(2 + cg) * LM_ITERS, hamming_top2=0,
-                hamming_table=0)
+                hamming_table=0, pcg_trip=cg * LM_ITERS)
     for r, o in enumerate(outs):
         check(o["ba_counts"] == want, f"dist_ba {world}: rank {r} launched "
               f"{o['ba_counts']}, expected {want}")
@@ -4364,7 +4487,8 @@ def _check_group2(outs, smi):
     cfg = bench_problem.vio_config("pcg")
     it, cg = cfg.max_iterations, cfg.cg_max_iters
     want = dict(segmm_g_a=0, seg_reduce=(3 + cg) * it,
-                seg_broadcast=(2 + cg) * it, hamming_top2=0, hamming_table=0)
+                seg_broadcast=(2 + cg) * it, hamming_top2=0, hamming_table=0,
+                pcg_trip=cg * it)
     for r, o in enumerate(outs):
         check(o["vio_counts"] == want, f"dist_vio: rank {r} launched "
               f"{o['vio_counts']}, expected {want}")
@@ -4712,7 +4836,9 @@ def main():
         _kernel_entry("hamming_table", HAMMING_SOURCE, TABLE_REPLACES,
                       table_launches, ham["table"]),
         *(_kernel_entry(k, MATVEC_SOURCE, MATVEC_REPLACES, mf_counts[k], v)
-          for k, v in mv_stats.items()),
+          for k, v in mv_stats.items() if k != "pcg_trip"),
+        _kernel_entry("pcg_trip", PCG_SOURCE, PCG_REPLACES,
+                      mf_counts["pcg_trip"], mv_stats["pcg_trip"]),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count(),

@@ -17,6 +17,10 @@ the caller asks for the CPU).
 op. :func:`make_vio_problem` and :func:`bench_vio` are ``bench.py``'s
 ``bench_vio`` configuration (BASELINE config 4) built from seeds.
 
+:func:`pcg_trip_operands`, :func:`pcg_trip_errors` and
+:func:`pcg_trip_times` hold the CG trip kernel (``ops.segmm.pcg_trip``) to
+its plain version and time both on random operands at a cell's pose count.
+
 :func:`ba_batched_problems` and :func:`bench_ba_batched` are ``bench.py``'s
 ``bench_ba_batched`` (B windows of 50 poses, 2,000 landmarks and 240
 observations per pose, seeds 10 + i) through ``optim.ba.solve_ba_batched``;
@@ -33,6 +37,7 @@ import numpy as np
 import torch
 
 from libwave_tpu_torch.geometry import so3
+from libwave_tpu_torch.ops import segmm
 from libwave_tpu_torch.optim import schur
 from libwave_tpu_torch.optim.ba import (
     BAConfig,
@@ -503,8 +508,6 @@ def matvec_kernel_times(blocks, x, reps: int = 20) -> dict:
     and under ``"matvec"`` the whole ``schur_matvec`` against
     ``schur._plain_matvec`` (bytes: the four steps'). Reads the layout's
     slot count and the ids' distinct landmarks on the host."""
-    from libwave_tpu_torch.ops import segmm
-
     W, free, ell = blocks.W, blocks.free_pose, blocks.lm_order
     _, N, P = W.shape
     M, D = blocks.Hll_inv.shape[1], x.shape[1]
@@ -612,8 +615,6 @@ def matvec_kernel_errors(a: dict) -> dict:
     its terms' magnitudes (``|Hpp| |x̂| + |W| |y|``, which bounds the
     rounding of any order of the sums). ``same_bits``: the two runs
     agree; ``fixed_zero``: exact zeros on the fixed coordinates."""
-    from libwave_tpu_torch.ops import segmm
-
     W, ids, x, free = a["W"], a["ids"], a["x"], a["free"]
     N, P = W.shape[1:]
     D = x.shape[1]
@@ -662,6 +663,123 @@ def matvec_operand_blocks(a: dict):
         free_pose=a["free"], ell=layout,
         C=torch.zeros((0, D, D), device=dev), ci=empty, cj=empty)
     return blocks, x
+
+
+# (N, D, free_pose (N, D)) of the CG trip kernel's checks: venice-mf's and
+# final-13682-mf's pose counts, at BA's D = 6 and VIO's D = 15.
+PCG_TRIP_CASES = [
+    (1778, 6, False),
+    (1778, 15, True),
+    (13682, 6, True),
+    (13682, 15, False),
+]
+
+
+def pcg_trip_operands(N, D, free_cols, device=None) -> dict:
+    """Random operands of one CG trip, drawn on ``device`` from a generator
+    seeded by the shape: P (N, D, D) symmetric blocks near the identity, a
+    fixed first camera (and a fixed column where free_pose is (N, D)), x, r
+    and p (N, D), Sp = d p with d in [1, 2) (so that p . Sp adds positive
+    terms, as an SPD operator's does), rz = r . z with z = P r per pose,
+    and rr = r . r."""
+    device = resolve(device)
+    g = torch.Generator(device=device).manual_seed(N * D + int(free_cols))
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=device)
+
+    G = randn(N, D, D)
+    P = (torch.eye(D, device=device) + 0.02 * (G + G.mT)).contiguous()
+    free = torch.ones((N, D) if free_cols else (N,), device=device)
+    free[0] = 0.0
+    if free_cols:
+        free[1, 3] = 0.0
+    x, r, p = randn(N, D), randn(N, D), randn(N, D)
+    Sp = p * (1.0 + torch.rand((N, D), generator=g, device=device))
+    z = segmm.block_jacobi_apply(P, r, free)
+    return dict(P=P, free=free, x=x, r=r, p=p, Sp=Sp, rz=torch.sum(r * z),
+                rr=torch.sum(r * r))
+
+
+def _bits(t):
+    return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+
+def pcg_trip_errors(a: dict, it0: int = 3) -> dict:
+    """``ops.segmm.pcg_trip`` on :func:`pcg_trip_operands` ``a`` against
+    ``pcg_trip_reference``: a live trip (thresh_sq below rr) and a frozen
+    one (above it), each run twice from the same inputs and an iteration
+    count ``it0``. ``rel`` and ``rel_frozen``: per output (x, r, z, p, rz,
+    rr), the trip's largest |kernel - plain| over the plain output's
+    largest magnitude; ``max_abs_err``: the live trip's largest |kernel -
+    plain| over x, r, z and p; ``it_equal``: both trips' counts equal the plain
+    version's; ``same_bits``: the two runs agree bit for bit;
+    ``frozen_kept``: the frozen trip leaves x, r and rz bit-identical;
+    ``fixed_zero``: z is exactly 0 on the fixed coordinates."""
+    dev = a["x"].device
+
+    def fused(thresh):
+        bufs = [a["x"].clone(), a["r"].clone(), torch.empty_like(a["x"]),
+                a["p"].clone()]
+        state = torch.stack([a["rz"], a["rr"], thresh,
+                             torch.zeros_like(a["rz"])])
+        state.view(torch.int32)[3] = it0
+        segmm.pcg_trip(a["P"], a["free"], *bufs, state)(a["Sp"])
+        return (*bufs, state[0], state[1], state.view(torch.int32)[3])
+
+    def plain(thresh):
+        return segmm.pcg_trip_reference(
+            a["P"], a["free"], a["x"], a["r"], a["p"], a["Sp"], a["rz"],
+            a["rr"], thresh, torch.tensor(it0, dtype=torch.int32, device=dev))
+
+    def rel(got, want):
+        return {k: float((g.double() - w.double()).abs().max()
+                         / w.double().abs().max())
+                for k, g, w in zip(("x", "r", "z", "p", "rz", "rr"), got,
+                                   want)}
+
+    live, frozen = 1e-6 * a["rr"], 2.0 * a["rr"]
+    runs = [fused(live) for _ in range(2)]
+    fz = [fused(frozen) for _ in range(2)]
+    ref, ref_f = plain(live), plain(frozen)
+    fixed = segmm.project(torch.ones_like(a["x"]), a["free"]) == 0
+    return {
+        "rel": rel(runs[0], ref),
+        "rel_frozen": rel(fz[0], ref_f),
+        "max_abs_err": max(float((g.double() - w.double()).abs().max())
+                           for g, w in zip(runs[0][:4], ref[:4])),
+        "it_equal": (int(runs[0][6]) == int(ref[6]) == it0 + 1
+                     and int(fz[0][6]) == int(ref_f[6]) == it0),
+        "same_bits": all(torch.equal(_bits(u), _bits(v))
+                         for pair in (runs, fz) for u, v in zip(*pair)),
+        "frozen_kept": all(torch.equal(_bits(u), _bits(v)) for u, v in (
+            (fz[0][0], a["x"]), (fz[0][1], a["r"]), (fz[0][4], a["rz"]))),
+        "fixed_zero": bool(fixed.any()) and not bool(runs[0][2][fixed].any()),
+    }
+
+
+def pcg_trip_times(a: dict, reps: int = 20) -> dict:
+    """Device ms of one CG trip on :func:`pcg_trip_operands` ``a``
+    (:func:`device_ms`) through ``ops.segmm.pcg_trip``'s kernel (the trip
+    set up anew in each call, so that a captured graph holds its launches
+    on the capturing stream) and through ``pcg_trip_reference``, the eager
+    loop body; and the bytes the trip must move: P and free_pose once and
+    eight passes over (N, D) vectors, reading x, r, p and Sp and writing x,
+    r, z and p (``csrc/schur_pcg.cu``)."""
+    N, D = a["x"].shape
+    x, r, p = a["x"].clone(), a["r"].clone(), a["p"].clone()
+    z = torch.empty_like(x)
+    state = torch.stack([a["rz"], a["rr"], 1e-6 * a["rr"],
+                         torch.zeros_like(a["rz"])])
+    it = torch.zeros((), dtype=torch.int32, device=x.device)
+    return {
+        "ms": device_ms(lambda: segmm.pcg_trip(a["P"], a["free"], x, r, z,
+                                               p, state)(a["Sp"]), reps),
+        "plain_ms": device_ms(lambda: segmm.pcg_trip_reference(
+            a["P"], a["free"], x, r, p, a["Sp"], state[0], state[1],
+            state[2], it), reps),
+        "bytes": 4 * (N * D * D + a["free"].numel() + 8 * N * D + 4),
+    }
 
 
 VIO_PARAMS = VoSimParams(nb_landmarks=120, steps=600, fx=200.0, fy=200.0,

@@ -24,7 +24,7 @@ from pathlib import Path
 
 _LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
                  "cuLaunchKernelEx")
-_OWN = ("g_a_", "seg_reduce", "seg_broadcast", "top2", "table")
+_OWN = ("g_a_", "seg_reduce", "seg_broadcast", "top2", "table", "pcg_")
 
 
 def kernel_launches(fn):

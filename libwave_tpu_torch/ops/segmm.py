@@ -20,7 +20,11 @@ use and bound with ``ctypes``:
   :func:`seg_reduce_sorted` between the first two, the matrix-free Schur
   matvec ``optim.schur.schur_matvec`` on pose-ELL blocks in four launches:
   ``W^T x`` per slot, the landmark reduce, the ``Hll^-1`` step, and one
-  pose-side pass that gathers ``y``, applies W and sums a pose's slots.
+  pose-side pass that gathers ``y``, applies W and sums a pose's slots;
+- :func:`pcg_trip` (``csrc/schur_pcg.cu``): one trip of ``optim.schur.pcg``'s
+  loop after its matvec (the step sizes, the x, r and p updates, the
+  block-Jacobi apply and the dots) in one host call, the state kept on the
+  device.
 
 Each wrapper launches its kernel on a CUDA tensor (or raises on inputs the
 kernel does not take) and counts the launch in its ``launches`` attribute;
@@ -77,6 +81,8 @@ _SEG_SOURCES = ["segmm_seg.cu"]
 _SEG_TYPES = {torch.float32: "f32", torch.float64: "f64"}
 _MATVEC_SOURCES = ["schur_matvec.cu"]
 _MATVEC_ROWS = 18  # Dj * 3 rows of W the matvec kernels take
+_PCG_SOURCES = ["schur_pcg.cu"]
+PCG_MAX_D = 15  # pose coordinates the CG trip kernel takes at most (kMaxD)
 _INT32_MAX = 2**31 - 1
 
 
@@ -761,3 +767,183 @@ def matvec_pose_side(W: torch.Tensor, lm_idx: torch.Tensor, y: torch.Tensor,
 matvec_wt_slots.launches = 0
 matvec_landmark_step.launches = 0
 matvec_pose_side.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# One trip of the preconditioned CG loop (csrc/schur_pcg.cu)
+# ---------------------------------------------------------------------------
+
+
+def block_jacobi_apply(P: torch.Tensor, v: torch.Tensor,
+                       free_pose: torch.Tensor) -> torch.Tensor:
+    """The block-Jacobi preconditioner's apply, ``project(P project(v))``
+    per pose: ``P`` (N, D, D), ``v`` (N, D) -> (N, D), the product in the
+    operands' promoted dtype."""
+    v = project(v, free_pose)
+    dt = torch.promote_types(P.dtype, v.dtype)
+    return project(torch.einsum("nij,nj->ni", P.to(dt), v.to(dt)),
+                   free_pose)
+
+
+def pcg_trip_reference(P, free_pose, x, r, p, Sp, rz, rr, thresh_sq, it):
+    """Plain PyTorch CG trip: the body of ``optim.schur.pcg``'s loop after
+    its matvec ``Sp = S p``, operation for operation. ``P`` (N, D, D)
+    inverted preconditioner blocks, ``free_pose`` (N,) or (N, D), vectors
+    ``x``, ``r``, ``p``, ``Sp`` (N, D), scalars ``rz``, ``rr``,
+    ``thresh_sq`` and the int32 ``it`` (0-d tensors) -> the trip's ``(x, r,
+    z, p, rz, rr, it)``, new tensors. Convergence masks the step sizes: a
+    trip that starts with ``rr <= thresh_sq`` moves neither x, r nor rz."""
+    live = rr > thresh_sq
+    denom = torch.sum(p * Sp)
+    alpha = torch.where(live, rz / torch.where(denom == 0, 1.0, denom), 0.0)
+    x = x + alpha * p
+    r = r - alpha * Sp
+    z = block_jacobi_apply(P, r, free_pose)
+    rz_new = torch.sum(r * z)
+    rr = torch.sum(r * r)
+    beta = torch.where(live, rz_new / torch.where(rz == 0, 1.0, rz), 0.0)
+    p = z + beta * p
+    rz = torch.where(live, rz_new, rz)
+    it = it + live.to(torch.int32)
+    return x, r, z, p, rz, rr, it
+
+
+@functools.cache
+def _pcg_library() -> tuple[ctypes.CDLL, str]:
+    lib, log = _build.load("schur_pcg", _PCG_SOURCES)
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.pcg_trip_f32.argtypes = [p] * 7 + [i, p, p, i, i, i, p]
+    lib.pcg_trip_f32.restype = ctypes.c_int
+    lib.pcg_trip_scratch_floats.argtypes = [i, i]
+    lib.pcg_trip_scratch_floats.restype = ctypes.c_longlong
+    return lib, log
+
+
+def build_pcg() -> str:
+    """Build (or reuse) and load the CG trip library; returns the
+    compiler's ``-Xptxas -v`` report."""
+    return _pcg_library()[1]
+
+
+def _pcg_shape_fault(x, P, free_pose):
+    """What of a CG solve's shapes the trip kernel does not take, as a
+    message, or None: ``x`` (N, D) with 0 < D <= PCG_MAX_D and N * D <
+    2^31, ``P`` (N, D, D), ``free_pose`` (N,) or (N, D)."""
+    N, D = x.shape if x.dim() == 2 else (-1, -1)
+    if x.dim() != 2 or not 0 < D <= PCG_MAX_D or N * D > _INT32_MAX:
+        return (f"x must be (N, D) with 0 < D <= {PCG_MAX_D} and N * D < "
+                f"2^31, got {tuple(x.shape)}")
+    if tuple(P.shape) != (N, D, D):
+        return f"P must be ({N}, {D}, {D}), got {tuple(P.shape)}"
+    if tuple(free_pose.shape) not in ((N,), (N, D)):
+        return (f"free_pose must be ({N},) or ({N}, {D}), got "
+                f"{tuple(free_pose.shape)}")
+    return None
+
+
+def takes_pcg_trip(b, P, free_pose) -> bool:
+    """Whether :func:`pcg_trip`'s kernel takes a CG solve of ``b`` (N, D)
+    under the preconditioner blocks ``P`` and ``free_pose``: on the card,
+    float32, in the shapes :func:`pcg_trip` checks (0 < D <= PCG_MAX_D, P
+    (N, D, D), free_pose (N,) or (N, D))."""
+    return (b.is_cuda and _pcg_shape_fault(b, P, free_pose) is None
+            and all(t.dtype == torch.float32 for t in (b, P, free_pose)))
+
+
+def _check_pcg_inputs(P, free_pose, vectors, state):
+    """The CG trip's operands on one CUDA device, float32, contiguous:
+    ``vectors`` (name, (N, D)) in the shapes :func:`_pcg_shape_fault`
+    takes, with ``P`` and ``free_pose``; ``state`` (4,). Returns (N, D,
+    free_cols)."""
+    x = vectors[0][1]
+    fault = _pcg_shape_fault(x, P, free_pose)
+    if fault is not None:
+        raise ValueError(f"pcg_trip: {fault}")
+    N, D = x.shape
+    for name, t in vectors:
+        if tuple(t.shape) != (N, D):
+            raise ValueError(f"pcg_trip: {name} must be ({N}, {D}), got "
+                             f"{tuple(t.shape)}")
+    if tuple(state.shape) != (4,):
+        raise ValueError(f"pcg_trip: state must be (4,), got "
+                         f"{tuple(state.shape)}")
+    named = (*vectors, ("P", P), ("free_pose", free_pose), ("state", state))
+    for name, t in named:
+        if t.device != x.device:
+            raise ValueError(f"pcg_trip: {name} is on {t.device}, x on "
+                             f"{x.device}; they must share one device")
+    _check_f32("pcg_trip", named, x.device)
+    return N, D, 0 if free_pose.dim() == 1 else D
+
+
+def pcg_trip(P: torch.Tensor, free_pose: torch.Tensor, x: torch.Tensor,
+             r: torch.Tensor, z: torch.Tensor, p: torch.Tensor,
+             state: torch.Tensor):
+    """The trips of one preconditioned CG solve, each after its matvec:
+    returns ``trip(Sp)``, which runs one trip of
+    :func:`pcg_trip_reference` on ``Sp = S p`` and writes its results in
+    place: x, r, z and p into their buffers, rz, rr and it into ``state``.
+
+    ``P`` (N, D, D) inverted preconditioner blocks, ``free_pose`` (N,) or
+    (N, D), the vectors ``x``, ``r``, ``z``, ``p`` (N, D), ``state`` (4,)
+    float32: rz, rr, thresh_sq and the int32 iteration count in the bits
+    of the fourth float (``state[3:].view(torch.int32)``).
+
+    On CUDA the operands are checked here, once a solve (float32, 0 < D <=
+    15, contiguous, one device, distinct vector buffers; other inputs
+    raise), and the device's current stream taken, on which every trip
+    launches; each ``trip(Sp)`` then
+    checks ``Sp`` (float32, (N, D), contiguous, none of the four vectors)
+    and makes one ctypes call into ``csrc/schur_pcg.cu``, three launches
+    that read nothing back to the host, counted in ``pcg_trip.launches``
+    (one a trip); a launch the card refuses raises. The three dots add in
+    the kernel's fixed order, not ``torch.sum``'s. On CPU tensors each trip
+    runs :func:`pcg_trip_reference` and copies its results in, bit for bit
+    its numbers."""
+    if x.device.type == "cpu":
+        it = state[3:].view(torch.int32)[0]
+
+        def plain_trip(Sp):
+            out = pcg_trip_reference(P, free_pose, x, r, p, Sp, state[0],
+                                     state[1], state[2], it)
+            for buf, v in zip((x, r, z, p, state[0], state[1], it), out):
+                buf.copy_(v)
+        return plain_trip
+    vectors = (("x", x), ("r", r), ("z", z), ("p", p))
+    N, D, free_cols = _check_pcg_inputs(P, free_pose, vectors, state)
+    if x.device.type != "cuda":
+        raise ValueError(f"pcg_trip: unsupported device {x.device}")
+    owned = frozenset(t.data_ptr() for _, t in vectors)
+    if len(owned) != len(vectors):
+        raise ValueError("pcg_trip: x, r, z and p must be distinct buffers")
+    lib, _ = _pcg_library()
+    fn = lib.pcg_trip_f32
+    scratch = torch.empty(lib.pcg_trip_scratch_floats(N, D),
+                          dtype=torch.float32, device=x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    device = x.device.index
+    shape = x.shape
+    bufs = (p, x, r, z, P, free_pose, state, scratch)
+    p_, x_, r_, z_, P_, free_, state_, scratch_ = (t.data_ptr() for t in bufs)
+
+    def trip(Sp):
+        if (Sp.dtype != torch.float32 or Sp.shape != shape
+                or not Sp.is_contiguous() or Sp.get_device() != device
+                or Sp.data_ptr() in owned):
+            raise ValueError(f"pcg_trip: Sp must be a float32 ({N}, {D}) "
+                             f"contiguous tensor on cuda:{device}, apart "
+                             f"from x, r, z and p")
+        err = fn(p_, Sp.data_ptr(), x_, r_, z_, P_, free_, free_cols, state_,
+                 scratch_, N, D, device, stream)
+        if err != 0:
+            raise RuntimeError(f"pcg_trip_f32 launch failed: CUDA error "
+                               f"{err}")
+        pcg_trip.launches += 1
+
+    trip.buffers = bufs  # alive while the kernel may use them
+    return trip
+
+
+# Trips launched since the count was last reset (the CPU path adds
+# nothing).
+pcg_trip.launches = 0

@@ -957,6 +957,38 @@ def _vdot(a, b):
     return torch.sum(a * b)
 
 
+def _takes_fused_cg(b, P, free_pose) -> bool:
+    """Whether :func:`pcg`'s trips run as ``ops.segmm.pcg_trip``'s kernel
+    (:func:`_fused_cg`): ``ops.segmm.takes_pcg_trip``, float32 (N, D)
+    vectors on the card with D <= 15, float32 (N, D, D) preconditioner
+    blocks and float32 free_pose (N,) or (N, D). Elsewhere (the CPU, f64)
+    each trip runs ``ops.segmm.pcg_trip_reference``."""
+    return segmm.takes_pcg_trip(b, P, free_pose)
+
+
+def _fused_cg(matvec, P, free_pose, x, r, z, rz, rr, thresh_sq,
+              max_iters: int) -> CGResult:
+    """:func:`pcg`'s loop from its set-up's x, r, z and scalars, each trip
+    its matvec and one host call of ``ops.segmm.pcg_trip``, which updates
+    x, r, z, p and the state (rz, rr, thresh_sq, it) in place on the
+    device. Counted as ``schur.cg_fused`` beside ``schur.cg_trips``."""
+    x = x.contiguous()
+    r, z = r.contiguous(), z.contiguous()
+    p = z.clone()
+    # it starts at 0: the int32 in the fourth float's bits
+    state = torch.stack([rz, rr, thresh_sq, torch.zeros_like(rz)])
+    trip = segmm.pcg_trip(P.contiguous(), free_pose.contiguous(), x, r, z,
+                          p, state)
+    for _ in range(max_iters):
+        count("schur.cg_trips")
+        count("schur.cg_fused")
+        with span("schur.matvec"):
+            Sp = matvec(p)
+        trip(Sp)
+    return CGResult(x=x, iterations=state[3:].view(torch.int32)[0],
+                    residual_norm=torch.sqrt(state[1]))
+
+
 def pcg(blocks: SchurBlocks, b, max_iters: int = 100, tol: float = 1e-8,
         S4: torch.Tensor | None = None) -> CGResult:
     """Preconditioned conjugate gradients on the reduced camera system.
@@ -964,6 +996,9 @@ def pcg(blocks: SchurBlocks, b, max_iters: int = 100, tol: float = 1e-8,
     Runs exactly ``max_iters`` iterations with convergence *masking* on the
     scalar step sizes (alpha/beta -> 0 freezes x, r, rz) instead of a
     data-dependent exit: the loop never reads a device value on the host.
+    Each trip is its matvec, then ``ops.segmm.pcg_trip_reference``, or, for
+    the float32 vectors on the card that :func:`_takes_fused_cg` names, the
+    kernel of ``ops.segmm.pcg_trip`` in one host call (:func:`_fused_cg`).
 
     ``S4`` (explicit-S mode): the materialized reduced system from
     :func:`dense_reduced_system`. The Krylov iterates match the
@@ -991,39 +1026,25 @@ def pcg(blocks: SchurBlocks, b, max_iters: int = 100, tol: float = 1e-8,
         def matvec(x):
             return schur_matvec(blocks, x)
 
-    def apply_P(v):
-        return _project(
-            _einsum("nij,nj->ni", P, _project(v, blocks.free_pose)),
-            blocks.free_pose,
-        )
-
-    b = _project(b, blocks.free_pose)
+    free = blocks.free_pose
+    b = _project(b, free)
     x = torch.zeros_like(b)
     r = b
-    z = apply_P(r)
+    z = segmm.block_jacobi_apply(P, r, free)
     p = z
     rz = _vdot(r, z)
     rr = _vdot(b, b)
     thresh_sq = (tol * tol) * rr
+    if _takes_fused_cg(b, P, free):
+        return _fused_cg(matvec, P, free, x, r, z, rz, rr, thresh_sq,
+                         max_iters)
     it = torch.zeros((), dtype=torch.int32, device=b.device)
     for _ in range(max_iters):
         count("schur.cg_trips")
-        live = rr > thresh_sq
         with span("schur.matvec"):
             Sp = matvec(p)
-        denom = _vdot(p, Sp)
-        alpha = torch.where(
-            live, rz / torch.where(denom == 0, 1.0, denom), 0.0
-        )
-        x = x + alpha * p
-        r = r - alpha * Sp
-        z = apply_P(r)
-        rz_new = _vdot(r, z)
-        rr = _vdot(r, r)
-        beta = torch.where(live, rz_new / torch.where(rz == 0, 1.0, rz), 0.0)
-        p = z + beta * p
-        rz = torch.where(live, rz_new, rz)
-        it = it + live.to(torch.int32)
+        x, r, z, p, rz, rr, it = segmm.pcg_trip_reference(
+            P, free, x, r, p, Sp, rz, rr, thresh_sq, it)
     return CGResult(x=x, iterations=it, residual_norm=torch.sqrt(rr))
 
 

@@ -39,7 +39,7 @@ SOLVE_SPAN = "ba.solve"
 # The kernel wrappers of ``ops.segmm`` whose ``launches`` a recording reads.
 LAUNCH_COUNTED = ("seg_reduce_sorted", "seg_broadcast", "dense_g_a_window",
                   "matvec_wt_slots", "matvec_landmark_step",
-                  "matvec_pose_side")
+                  "matvec_pose_side", "pcg_trip")
 
 _recording = None  # the active Recording, or None
 

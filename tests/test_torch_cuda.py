@@ -41,6 +41,20 @@ kernel: a thread's slots, 5 shuffle levels, at most 32 warps), so each
 lies within ~50 * 2^-24 of the sum of the terms' magnitudes from the
 exact value, and the two within 1e-5 of it. All three are bit-identical
 across runs.
+
+The CG trip kernel (``pcg_trip``) rounds its elementwise steps as the
+plain version does and adds its three dots (p . Sp, r . z, r . r) in its
+own fixed order, where the plain version's ``torch.sum`` and ``einsum``
+take others. Each sum is a chain of at most ~35 rounded additions in
+either order (the kernel: 4 elements a thread, 5 shuffle levels, 8 warps,
+then up to 4 partials a thread and the same tree again), so each lies
+within ~35 * 2^-24 = 2.1e-6 of the sum of its terms' magnitudes from the
+exact value; on operands whose sums add terms of one sign (an SPD
+operator's p . Sp and r . z, and r . r) that bounds the step sizes'
+relative gap by ~4e-6, and x, r, z and p, each a step size times a vector
+plus a vector, agree within 1e-5 of their largest magnitude. A frozen
+trip leaves x, r and rz bit for bit, and the kernel gives the same bits
+run to run.
 """
 
 import contextlib
@@ -118,16 +132,28 @@ def test_small_solve_through_kernel(cuda_device):
     )
     cfg = dataclasses.replace(bench_problem.bench_config(3),
                               explicit_s="always")
+    cg = cfg.cg_max_iters
     before = segmm.dense_g_a_window.launches
+    trips_before = segmm.pcg_trip.launches
     _, info = ba.solve_ba(problem, state, cfg)
     calls = sum(len(r) for _, _, r in problem.bands.entries)
     assert segmm.dense_g_a_window.launches - before == 3 * calls
     with mock.patch.object(schur, "dense_g_a_window",
                            segmm.dense_g_a_window_reference):
         _, info_p = ba.solve_ba(problem, state, cfg)
+    # every CG trip of both solves through the trip kernel, one call each
+    assert segmm.pcg_trip.launches - trips_before == 6 * cg
     costs, costs_p = info["costs"].cpu().numpy(), info_p["costs"].cpu().numpy()
     assert np.isfinite(costs).all() and costs[-1] < float(info["initial_cost"])
     np.testing.assert_allclose(costs, costs_p, rtol=1e-3)
+    # the plain CG loop on the card: the same first iteration (later ones
+    # sit at this small problem's f32 floor, where the dots' order alone
+    # moves the cost by a few percent)
+    with mock.patch.object(schur, "_takes_fused_cg", return_value=False):
+        _, info_c = ba.solve_ba(problem, state, cfg)
+    assert segmm.pcg_trip.launches - trips_before == 6 * cg
+    np.testing.assert_allclose(costs[0], info_c["costs"].cpu().numpy()[0],
+                               rtol=1e-3)
 
 
 @contextlib.contextmanager
@@ -509,6 +535,7 @@ def test_small_matrix_free_solve_through_segment_kernels(cuda_device):
                               explicit_s="never")
     cg = cfg.cg_max_iters
     before, mv_before = _launches(), _matvec_launches()
+    trips_before = segmm.pcg_trip.launches
     _, info = ba.solve_ba(problem, state, cfg)
     # per LM iteration: Hll, bl, back-substitution and one reduce per CG
     # step; schur_rhs's and the preconditioner's broadcasts; each CG step's
@@ -522,9 +549,19 @@ def test_small_matrix_free_solve_through_segment_kernels(cuda_device):
         _, info_p = ba.solve_ba(problem, state, cfg)
     assert _launches()[1:] == (before[1] + 3 * (3 + cg), before[2] + 3 * 2)
     assert _matvec_launches() == tuple(b + 6 * cg for b in mv_before)
+    # every CG trip of both solves through the trip kernel, one call each
+    assert segmm.pcg_trip.launches - trips_before == 6 * cg
     costs, costs_p = info["costs"].cpu().numpy(), info_p["costs"].cpu().numpy()
     assert np.isfinite(costs).all() and costs[-1] < float(info["initial_cost"])
     np.testing.assert_allclose(costs, costs_p, rtol=1e-3)
+    # the plain CG loop on the card: the same first iteration (later ones
+    # sit at this small problem's f32 floor, where the dots' order alone
+    # moves the cost by a few percent)
+    with mock.patch.object(schur, "_takes_fused_cg", return_value=False):
+        _, info_c = ba.solve_ba(problem, state, cfg)
+    assert segmm.pcg_trip.launches - trips_before == 6 * cg
+    np.testing.assert_allclose(costs[0], info_c["costs"].cpu().numpy()[0],
+                               rtol=1e-3)
     # the fused matvec is as accurate as the plain one: each f32 matvec's
     # distance from the f64 one, within 2x the plain one's (or 2^-24)
     with precision.full_f32():
@@ -555,6 +592,54 @@ def test_matvec_kernels_match_plain(cuda_device, N, P, M, D, free_cols,
     assert err["same_bits"] and err["fixed_zero"], err
     assert err["wt_slots"]["equal"] and err["landmark_step"]["equal"], err
     assert err["pose_side"]["rel"] <= 1e-5, err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,D,free_cols", bench_problem.PCG_TRIP_CASES)
+def test_pcg_trip_kernel_matches_plain(cuda_device, N, D, free_cols):
+    """The CG trip kernel against its plain version at venice-mf's and
+    final-13682-mf's pose counts, D = 6 and 15 (module docstring: x, r, z,
+    p, rz and rr within 1e-5 of their largest magnitude), a live trip
+    counting one more iteration and a frozen one leaving x, r and rz bit
+    for bit and the count as it was, exact zeros on fixed coordinates, the
+    same bits on a second run, one counted call a trip."""
+    a = bench_problem.pcg_trip_operands(N, D, free_cols, device=cuda_device)
+    before = segmm.pcg_trip.launches
+    err = bench_problem.pcg_trip_errors(a)
+    assert segmm.pcg_trip.launches - before == 4
+    assert err["it_equal"] and err["same_bits"], err
+    assert err["frozen_kept"] and err["fixed_zero"], err
+    for k in ("rel", "rel_frozen"):
+        assert max(err[k].values()) <= 1e-5, err
+
+
+@pytest.mark.cuda
+def test_pcg_trip_raises_on_the_card(cuda_device):
+    """On the card ``pcg_trip`` raises on an operand the kernel does not
+    take, checks each trip's Sp, and raises when the card refuses a
+    launch (the library's error code stood in by a fake library)."""
+    a = bench_problem.pcg_trip_operands(50, 6, False, device=cuda_device)
+    x, r, p = a["x"].clone(), a["r"].clone(), a["p"].clone()
+    z = torch.empty_like(x)
+    state = torch.stack([a["rz"], a["rr"], a["rr"], torch.zeros_like(a["rz"])])
+    with pytest.raises(ValueError, match="distinct"):
+        segmm.pcg_trip(a["P"], a["free"], x, r, x, p, state)
+    with pytest.raises(ValueError, match="device"):
+        segmm.pcg_trip(a["P"].cpu(), a["free"], x, r, z, p, state)
+    trip = segmm.pcg_trip(a["P"], a["free"], x, r, z, p, state)
+    for bad in (a["Sp"].double(), a["Sp"][:10], a["Sp"].T.contiguous().T,
+                a["Sp"].cpu(), p):
+        with pytest.raises(ValueError, match="Sp must be"):
+            trip(bad)
+    lib, log = segmm._pcg_library()
+    fake = mock.Mock(pcg_trip_f32=mock.Mock(return_value=9),
+                     pcg_trip_scratch_floats=lib.pcg_trip_scratch_floats)
+    before = segmm.pcg_trip.launches
+    with mock.patch.object(segmm, "_pcg_library", return_value=(fake, log)):
+        trip = segmm.pcg_trip(a["P"], a["free"], x, r, z, p, state)
+    with pytest.raises(RuntimeError, match="CUDA error 9"):
+        trip(a["Sp"])
+    assert segmm.pcg_trip.launches == before
 
 
 @pytest.mark.cuda

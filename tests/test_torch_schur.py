@@ -20,7 +20,10 @@ reference's synthetic BA dataset go through both packages. Tolerances:
 - the matvec's four kernel steps (``ops.segmm``'s matvec wrappers and the
   reduce) run their plain versions on the CPU, and composed they give
   ``schur_matvec``'s numbers bit for bit: the same operations in the same
-  order.
+  order;
+- the CG trip (``ops.segmm.pcg_trip_reference``, and ``pcg_trip``'s plain
+  in-place version on CPU tensors) against a copy of ``pcg``'s loop body
+  as it was written before the trip had a kernel: bit for bit.
 """
 
 import contextlib
@@ -595,3 +598,157 @@ def test_matvec_wrappers_raise_on_what_the_kernels_do_not_take(case):
     bad[i] = change(bad[i])
     with pytest.raises(exc, match=msg):
         _WRAPPERS[name](*bad)
+
+
+def _loop_body(P, free, x, r, p, Sp, rz, rr, thresh_sq, it):
+    """``pcg``'s loop body after its matvec as it was written inline,
+    before the trip had a kernel: the oracle of the trip's plain version."""
+    def vdot(a, b):
+        return torch.sum(a * b)
+
+    def apply_P(v):
+        return ts._project(ts._einsum("nij,nj->ni", P, ts._project(v, free)),
+                           free)
+
+    live = rr > thresh_sq
+    denom = vdot(p, Sp)
+    alpha = torch.where(live, rz / torch.where(denom == 0, 1.0, denom), 0.0)
+    x = x + alpha * p
+    r = r - alpha * Sp
+    z = apply_P(r)
+    rz_new = vdot(r, z)
+    rr = vdot(r, r)
+    beta = torch.where(live, rz_new / torch.where(rz == 0, 1.0, rz), 0.0)
+    p = z + beta * p
+    rz = torch.where(live, rz_new, rz)
+    it = it + live.to(torch.int32)
+    return x, r, z, p, rz, rr, it
+
+
+def _bits(t):
+    return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+
+@pytest.mark.parametrize("live", [True, False])
+@pytest.mark.parametrize("free_cols", [False, True])
+@pytest.mark.parametrize("D", [6, 15])
+def test_pcg_trip_plain_equals_the_loop_body(D, free_cols, live, rng):
+    """``pcg_trip_reference``, and ``pcg_trip``'s in-place trip on CPU
+    buffers (composed as on the card: x, r, z, p and a (4,) state holding
+    rz, rr, thresh_sq and the int32 it), give the loop body's numbers bit
+    for bit over three f32 trips: D = 6 and 15, free_pose (N,) and (N, D),
+    live trips and frozen ones (rr below thresh_sq), which leave x, r and
+    rz bit-identical. No launch is counted."""
+    n = 9
+
+    def t(a):
+        return torch.as_tensor(a, dtype=torch.float32)
+
+    G = rng.normal(size=(n, D, D))
+    P = t(np.eye(D) + 0.02 * (G + G.transpose(0, 2, 1)))
+    free = np.ones((n, D) if free_cols else n)
+    free[0] = 0.0
+    if free_cols:
+        free[1, 3] = 0.0
+    free = t(free)
+    x, r, p = (t(rng.normal(size=(n, D))) for _ in range(3))
+    S = [t(rng.uniform(1.0, 2.0, size=(n, D))) for _ in range(3)]
+    rz, rr = torch.sum(r * p), torch.sum(r * r)
+    thresh = rr * (1e-6 if live else 2.0)
+    it = torch.tensor(4, dtype=torch.int32)
+    want = (x, r, None, p, rz, rr, it)
+    state = torch.stack([rz, rr, thresh, torch.zeros_like(rz)])
+    state.view(torch.int32)[3] = 4
+    bufs = [x.clone(), r.clone(), torch.empty_like(x), p.clone()]
+    launches = segmm.pcg_trip.launches
+    trip = segmm.pcg_trip(P, free, *bufs, state)
+    for d in S:
+        Sp = want[3] * d  # p . Sp a sum of positive terms
+        got = segmm.pcg_trip_reference(P, free, want[0], want[1], want[3],
+                                       Sp, want[4], want[5], thresh, want[6])
+        want = _loop_body(P, free, want[0], want[1], want[3], Sp, want[4],
+                          want[5], thresh, want[6])
+        trip(Sp)
+        inplace = (*bufs, state[0], state[1], state[3:].view(torch.int32)[0])
+        for a, b, c in zip(got, want, inplace):
+            assert a.dtype == b.dtype == c.dtype
+            assert torch.equal(_bits(a), _bits(b))
+            assert torch.equal(_bits(c), _bits(b))
+    assert int(want[6]) == (7 if live else 4)
+    if not live:
+        for a, b in ((want[0], x), (want[1], r), (want[4], rz)):
+            assert torch.equal(_bits(a), _bits(b))
+    assert segmm.pcg_trip.launches == launches
+
+
+@pytest.mark.parametrize("case", ["card", "explicit_s", "d15", "cpu", "f64"])
+def test_cg_dispatch(case, lin, rng):
+    """Which loop ``pcg`` runs, read from the ``schur.cg_fused`` and
+    ``schur.cg_trips`` counters inside a recording: float32 vectors on the
+    card take the fused trip on every trip, matrix-free, against an
+    explicit S and at D = 15; the CPU and float64 take the plain trip on
+    none. The card is stood in for by ``Tensor.is_cuda`` (the wrappers see
+    CPU tensors and run their plain versions: no launch), and every case
+    gives the unpatched CPU solve's numbers bit for bit. The fused loop
+    keeps its vectors contiguous, as the kernel takes them, and
+    ``torch.sum`` adds in an order that follows its operands' layout (the
+    right-hand side ``schur_rhs`` returns is column-major here), so both
+    solves start from a contiguous one."""
+    bt = _port_blocks(lin, rng, D=15 if case == "d15" else 6,
+                      dtype=torch.float64 if case == "f64" else torch.float32)
+    S4 = ts.dense_reduced_system(bt) if case == "explicit_s" else None
+    b = ts.schur_rhs(bt).contiguous()
+    card = (contextlib.nullcontext() if case == "cpu" else
+            mock.patch.object(torch.Tensor, "is_cuda",
+                              new_callable=mock.PropertyMock,
+                              return_value=True))
+    with card, trace.recording() as rec:
+        got = ts.pcg(bt, b, max_iters=12, tol=1e-10, S4=S4)
+    trips = rec.counters["schur.cg_trips"]
+    assert trips == 12
+    fused = case in ("card", "explicit_s", "d15")
+    assert rec.counters["schur.cg_fused"] == (trips if fused else 0)
+    assert rec.counters["launches.pcg_trip"] == 0
+    want = ts.pcg(bt, b, max_iters=12, tol=1e-10, S4=S4)
+    for a, w in zip(got, want):
+        assert a.dtype == w.dtype and torch.equal(a, w)
+
+
+def _pcg_trip_args(N_=4, D=15):
+    """Well-formed arguments of ``pcg_trip`` on the meta device (no
+    data): P, free_pose, x, r, z, p, state."""
+    return [_meta(N_, D, D), _meta(N_, D), *(_meta(N_, D) for _ in range(4)),
+            _meta(4)]
+
+
+# (argument index, replacement, exception, message)
+_PCG_TRIP_BAD = [
+    (2, lambda x: _meta(4, 16), ValueError, "D <= 15"),
+    (2, lambda x: _meta(4), ValueError, "x must be"),
+    (3, lambda r: r[:3], ValueError, "r must be"),
+    (5, lambda p: p.double(), TypeError, "p"),
+    (4, lambda z: z.T.contiguous().T, ValueError, "contiguous"),
+    (0, lambda P: P[:, :6, :6], ValueError, "P must be"),
+    (0, lambda P: P.transpose(1, 2), ValueError, "contiguous"),
+    (1, lambda f: f[:, :3], ValueError, "free_pose"),
+    (1, lambda f: f.double(), TypeError, "free_pose"),
+    (6, lambda s: s[:3], ValueError, "state"),
+    (6, lambda s: torch.empty(4), ValueError, "device"),
+]
+
+
+@pytest.mark.parametrize("case", range(len(_PCG_TRIP_BAD) + 1))
+def test_pcg_trip_raises_on_what_the_kernel_does_not_take(case):
+    """``pcg_trip`` checks every operand before it binds a kernel and
+    raises on what the kernel does not take; well-formed operands off the
+    CPU and off the card (the meta device) pass the checks and raise only
+    for the device."""
+    args = _pcg_trip_args()
+    if case == len(_PCG_TRIP_BAD):
+        with pytest.raises(ValueError, match="unsupported device"):
+            segmm.pcg_trip(*args)
+        return
+    i, change, exc, msg = _PCG_TRIP_BAD[case]
+    args[i] = change(args[i])
+    with pytest.raises(exc, match=msg):
+        segmm.pcg_trip(*args)
