@@ -9,14 +9,10 @@ it imports no JAX. Phases, each reported on its own line:
 1. device: the card's name, power limit and maximum SM clock (from
    ``nvidia-smi``), its SM count, the torch and CUDA versions; no CUDA
    device is a failure, never a CPU run;
-2. build: compiles ``libwave_tpu_torch/csrc/segmm_g_a.cu``,
-   ``libwave_tpu_torch/csrc/segmm_seg.cu``,
-   ``libwave_tpu_torch/csrc/schur_matvec.cu``,
-   ``libwave_tpu_torch/csrc/schur_pcg.cu``,
-   ``libwave_tpu_torch/csrc/hamming.cu`` and
-   ``libwave_tpu_torch/csrc/table_designs.cu`` (the first table kernel and
-   the tensor-core rate probe) for sm_90a, one nvcc each, started together,
-   and loads them;
+2. build: compiles every library of ``ops/_build.LIBRARIES``
+   (``libwave_tpu_torch/csrc/segmm_g_a.cu``, ``segmm_seg.cu``,
+   ``schur_matvec.cu``, ``schur_pcg.cu`` and ``hamming.cu``) for sm_90a,
+   one nvcc each, started together, and loads them;
 3. kernel: the G/A kernel through its window entry point
    (``dense_g_a_window``: the full W, the landmark-sorted layout and Hinv,
    window bounds) at each band call of the headline problem's first
@@ -42,10 +38,7 @@ it imports no JAX. Phases, each reported on its own line:
    run with TF32 off and without a synchronizing
    CUDA call that PyTorch's sync debug mode detects, give finite costs that
    end below the initial cost, and follow the trajectory of the same solve
-   with the plain G/A forced on the card (rtol 1e-3). It prints the CUDA
-   kernels one explicit-S LM iteration runs (``torch.profiler``, in a child
-   process running ``libwave_tpu_torch/launch_count.py``) beside the count
-   of the tree before the window entry point. Then LM
+   with the plain G/A forced on the card (rtol 1e-3). Then LM
    iterations/s for both, and a small f64 problem solved on the card
    against the CPU;
 5. seg: the segment reduce and broadcast kernels against their plain
@@ -234,14 +227,12 @@ it imports no JAX. Phases, each reported on its own line:
    100, 1,500, 4,500 and 2,200 query rows), the top-2 at 2,048^2 x 16 and
    16,384^2 x 16; the table also at ``bench_frontend.table_edge_cases``
    (W = 1, 2, 4, 8, 16, 32, N1 and N2 of 1, 7, 33, 100 and 4,097, a
-   2,048-row bank) and on banks 4 bytes past a 16-byte boundary. Then the
-   tensor cores' ``mma.sync`` rate on .b1 operands (and .s8), and each
+   2,048-row bank) and on banks 4 bytes past a 16-byte boundary. Then each
    kernel timed as device time against its plain version: the top-2 at
    the frame, 2,048^2 and 16,384^2; the table at the frame, 4,096^2 and
-   8,192^2 x 16 beside the first table kernel (CUDA cores) and
-   ``torch.cdist(p=0)`` on the banks unpacked to 0/1 f32 bits, with two
-   bounds: the bytes, and the bit operations at the measured .b1 rate (the
-   first kernel's: the popcount issue rate);
+   8,192^2 x 16 beside ``torch.cdist(p=0)`` on the banks unpacked to 0/1
+   f32 bits, with its bound: the bytes (the products on the tensor cores
+   take far less);
 19. pair: ``bench.py``'s two-frame pair (480x640 blobs and their (4, 7) roll,
    FAST-512, BRISK, knn ratio + RANSAC) on the card: one top-2 launch per
    pair, pairs/s with the kernel and with the plain top-2; then the same pair
@@ -418,7 +409,6 @@ import torch
 
 import libwave_tpu_torch
 from libwave_tpu_torch import (
-    bench_designs,
     bench_frontend,
     bench_lidar,
     bench_problem,
@@ -427,7 +417,7 @@ from libwave_tpu_torch import (
     kinematics,
     native,
 )
-from libwave_tpu_torch.ops import hamming, segmm
+from libwave_tpu_torch.ops import _build, hamming, segmm
 from libwave_tpu_torch.benchmark import Trajectory, absolute_trajectory_error
 from libwave_tpu_torch.containers import measurement
 from libwave_tpu_torch.geography import world_frame
@@ -481,7 +471,6 @@ HERE = Path(__file__).resolve().parent
 KERNEL_SOURCE = "libwave_tpu_torch/csrc/segmm_g_a.cu"
 KERNEL_REPLACES = "libwave_tpu/ops/segmm.py:190"
 HAMMING_SOURCE = "libwave_tpu_torch/csrc/hamming.cu"
-TABLE_DESIGNS_SOURCE = "libwave_tpu_torch/csrc/table_designs.cu"
 TOP2_REPLACES = "libwave_tpu/ops/hamming.py:103"
 TABLE_REPLACES = "libwave_tpu/ops/hamming.py:27"
 SEG_SOURCE = "libwave_tpu_torch/csrc/segmm_seg.cu"
@@ -510,11 +499,6 @@ BA_DATASET = dict(nb_landmarks=100, steps=300, fx=200.0, fy=200.0, hz=10.0)
 BA_DATASET_SEED = 7
 BA_NOISE_SEED = 0
 BA_LARGE_ITERS = 5  # bench.py's bench_ba_large
-# kernels of one explicit-S LM iteration when the dense reduced system still
-# copied W, lm_slot - c0 and Hinv per G/A call (3 per call, 39 per
-# iteration): launch_count.py --root on a checkout of that tree, on an
-# NVIDIA H100 80GB HBM3 with torch 2.11
-KERNELS_BEFORE_WINDOW = 1455
 BAND_CALLS = 13  # band plan entries x pose runs of the headline problem
 REL_TOL = 1e-6
 # The JAX package's track_sequence(frames, FrontendParams()) on the same 25
@@ -690,36 +674,26 @@ def phase_device():
     return name, smi, popc_rate
 
 
-COUNTED = {
-    "segmm_g_a": segmm.dense_g_a_window,
-    "seg_reduce": segmm.seg_reduce_sorted,
-    "seg_broadcast": segmm.seg_broadcast,
-    "hamming_top2": hamming.hamming_top2,
-    "hamming_table": hamming.hamming_distance,
-}
-
-
-# the matrix-free matvec's own kernels, counted apart: only matrix-free
-# PCG solves launch them (matvec_launches)
-MATVEC_COUNTED = {
-    "matvec_wt_slots": segmm.matvec_wt_slots,
-    "matvec_landmark_step": segmm.matvec_landmark_step,
-    "matvec_pose_side": segmm.matvec_pose_side,
-}
-
-
 def reset_launches():
     """Set every kernel's launch count to 0."""
-    for fn in (*COUNTED.values(), *MATVEC_COUNTED.values(), segmm.pcg_trip):
+    for fn in trace.counted_wrappers().values():
         fn.launches = 0
 
 
+def _is_matvec(name):
+    # the matrix-free matvec's own kernels are counted apart: only
+    # matrix-free PCG solves launch them (matvec_launches)
+    return name.startswith("matvec_")
+
+
 def launch_counts():
-    """Every kernel's launch count since the last reset, but the
-    matvec's; ``pcg_trip`` counts the CG trip kernel's calls (one a CG
-    trip of a float32 solve on the card)."""
-    return {**{name: fn.launches for name, fn in COUNTED.items()},
-            "pcg_trip": segmm.pcg_trip.launches}
+    """Every counted wrapper's launch count since the last reset, by name
+    (``utils.trace.counted_wrappers``), but the matvec's; ``pcg_trip``
+    counts the CG trip kernel's calls (one a CG trip of a float32 solve on
+    the card)."""
+    return {name: fn.launches
+            for name, fn in trace.counted_wrappers().items()
+            if not _is_matvec(name)}
 
 
 def cg_trips(cfg, dtype):
@@ -730,7 +704,9 @@ def cg_trips(cfg, dtype):
 
 def matvec_launches():
     """The matvec kernels' launch counts since the last reset."""
-    return {name: fn.launches for name, fn in MATVEC_COUNTED.items()}
+    return {name: fn.launches
+            for name, fn in trace.counted_wrappers().items()
+            if _is_matvec(name)}
 
 
 def bound(nbytes, ops=0.0, ops_per_s=ALU_OPS_PER_S):
@@ -742,25 +718,20 @@ def bound(nbytes, ops=0.0, ops_per_s=ALU_OPS_PER_S):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def _timed_build(build):
+def _timed_build(lib):
     t0 = time.perf_counter()
-    log = build()
+    log = _build.build(lib)
     return log, time.perf_counter() - t0
 
 
 def phase_build():
-    """One nvcc per source, all started together."""
-    builds = ((KERNEL_SOURCE, segmm.build), (SEG_SOURCE, segmm.build_seg),
-              (MATVEC_SOURCE, segmm.build_matvec),
-              (PCG_SOURCE, segmm.build_pcg),
-              (HAMMING_SOURCE, hamming.build),
-              (TABLE_DESIGNS_SOURCE,
-               lambda: bench_designs.table_library()[1]))
-    with concurrent.futures.ThreadPoolExecutor(len(builds)) as pool:
-        futures = [pool.submit(_timed_build, b) for _, b in builds]
-        results = [f.result() for f in futures]
-    for (source, _), (log, dt) in zip(builds, results):
-        print(f"build: {source} built for sm_90a and loaded in {dt:.3f} s")
+    """One nvcc per library, all started together."""
+    libs = list(_build.LIBRARIES.values())
+    with concurrent.futures.ThreadPoolExecutor(len(libs)) as pool:
+        results = list(pool.map(_timed_build, libs))
+    for lib, (log, dt) in zip(libs, results):
+        sources = ", ".join(f"libwave_tpu_torch/csrc/{s}" for s in lib.sources)
+        print(f"build: {sources} built for sm_90a and loaded in {dt:.3f} s")
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"build: ptxas: {line.strip()}")
@@ -938,21 +909,6 @@ def _solve(problem, state, cfg, plain=False):
     return out, info
 
 
-def _launches_per_iteration():
-    """The kernels of one explicit-S LM iteration of the headline problem,
-    counted by ``libwave_tpu_torch/launch_count.py`` in a child process:
-    ``torch.profiler`` leaves its hooks in the process that used it, which
-    slowed every later launch of that process on the card, and so the rates
-    this script measures."""
-    proc = subprocess.run(
-        [sys.executable, str(HERE / "libwave_tpu_torch" / "launch_count.py")],
-        capture_output=True, text=True, timeout=600,
-    )
-    check(proc.returncode == 0, f"launch_count.py failed ({proc.returncode}): "
-          f"{proc.stderr[-2000:]}")
-    return json.loads(proc.stdout.strip().splitlines()[-1])
-
-
 def phase_headline(problem, state, cfg, smi):
     N, M = problem.free_pose.shape[0], state.lm.shape[0]
     check(
@@ -997,12 +953,13 @@ def phase_headline(problem, state, cfg, smi):
     # equations and back-substitution's reduce; schur_rhs's broadcast (the
     # explicit-S preconditioner is read off S: no broadcast); one trip
     # kernel call a CG trip
-    want = dict(segmm_g_a=BAND_CALLS * LM_ITERS, seg_reduce=3 * LM_ITERS,
-                seg_broadcast=LM_ITERS, hamming_top2=0, hamming_table=0,
+    want = dict(dense_g_a_window=BAND_CALLS * LM_ITERS,
+                seg_reduce_sorted=3 * LM_ITERS, seg_broadcast=LM_ITERS,
+                hamming_top2=0, hamming_distance=0,
                 pcg_trip=cg_trips(cfg, state.p.dtype) * LM_ITERS)
     check(counts == want, f"headline: launches {counts} in {LM_ITERS} LM "
           f"iterations, expected {want}")
-    launches_ga = counts["segmm_g_a"]
+    launches_ga = counts["dense_g_a_window"]
     check(len(tf32_seen) == LM_ITERS and not any(tf32_seen),
           f"TF32 was on inside solve_ba ({tf32_seen})")
     c0 = float(info["initial_cost"])
@@ -1011,21 +968,14 @@ def phase_headline(problem, state, cfg, smi):
           f"non-finite costs: {c0}, {costs}")
     check(costs[-1] < c0, f"final cost {costs[-1]} not below initial {c0}")
     print(f"headline: explicit-S path, {launches_ga} G/A, "
-          f"{counts['seg_reduce']} reduce and {counts['seg_broadcast']} "
-          f"broadcast kernel launches and {counts['pcg_trip']} CG trip "
+          f"{counts['seg_reduce_sorted']} reduce and "
+          f"{counts['seg_broadcast']} broadcast kernel launches and "
+          f"{counts['pcg_trip']} CG trip "
           f"kernel calls in {LM_ITERS} LM iterations, TF32 "
           f"off, no synchronizing call detected inside solve_ba; cost "
           f"{c0:.6e} -> "
           f"{costs[-1]:.6e}, accepted "
           f"{int(info['accepted'].sum())}/{LM_ITERS}")
-    per_iter = _launches_per_iteration()
-    print(f"headline: one explicit-S LM iteration runs {per_iter['kernels']} "
-          f"CUDA kernels on the device ({per_iter['own_kernels']} of them "
-          f"the package's: G/A, reduce, broadcast, CG trip), "
-          f"{per_iter['launch_calls']} runtime launch calls on the host "
-          f"(torch.profiler, libwave_tpu_torch/launch_count.py); the tree "
-          f"before the window entry point ran {KERNELS_BEFORE_WINDOW} "
-          f"({KERNELS_BEFORE_WINDOW - per_iter['kernels']} more)")
     _, info_p = _solve(problem, state, cfg, plain=True)
     costs_p = info_p["costs"].cpu().numpy().astype(np.float64)
     rel = np.abs(costs - costs_p) / np.abs(costs_p)
@@ -1270,12 +1220,13 @@ def _held_to_plain(what, stats):
     # their module's names, which stay untouched
     view = types.SimpleNamespace(**{
         **vars(segmm),
-        "seg_reduce_sorted": held("seg_reduce", segmm.seg_reduce_sorted,
-                                  segmm.seg_reduce_sorted_reference, True),
+        "seg_reduce_sorted": held(
+            "seg_reduce_sorted", segmm.seg_reduce_sorted,
+            segmm.seg_reduce_sorted_reference, True),
         "seg_broadcast": held("seg_broadcast", segmm.seg_broadcast,
                               segmm.seg_broadcast_reference, True)})
     with mock.patch.object(schur, "dense_g_a_window", held(
-            "segmm_g_a", segmm.dense_g_a_window,
+            "dense_g_a_window", segmm.dense_g_a_window,
             segmm.dense_g_a_window_reference, False)), \
             mock.patch.object(schur, "segmm", view):
         yield
@@ -1347,11 +1298,11 @@ def phase_matrix_free(problem, state, smi):
     # per CG matvec; broadcasts of schur_rhs and the preconditioner's self
     # blocks; each CG matvec also W^T x, the Hll^-1 step and the pose side
     # (which gathers y itself)
-    want = dict(segmm_g_a=0, seg_reduce=(3 + cg) * LM_ITERS,
-                seg_broadcast=2 * LM_ITERS, hamming_top2=0, hamming_table=0,
+    want = dict(dense_g_a_window=0, seg_reduce_sorted=(3 + cg) * LM_ITERS,
+                seg_broadcast=2 * LM_ITERS, hamming_top2=0, hamming_distance=0,
                 pcg_trip=cg * LM_ITERS)
     check(counts == want, f"matrix_free: launches {counts}, expected {want}")
-    want = dict.fromkeys(MATVEC_COUNTED, cg * LM_ITERS)
+    want = dict.fromkeys(matvec_launches(), cg * LM_ITERS)
     check(mv_counts == want, f"matrix_free: matvec launches {mv_counts}, "
           f"expected {want}")
     fused, trips = (rec.counters["schur.matvec_fused"],
@@ -1374,8 +1325,9 @@ def phase_matrix_free(problem, state, smi):
           f"matrix_free: first iteration {costs[0]} vs {costs_p[0]} through "
           f"the plain crossings")
     rel = np.abs(costs - costs_p) / np.abs(costs_p)
-    print(f"matrix_free: explicit_s='never', {counts['seg_reduce']} reduce "
-          f"and {counts['seg_broadcast']} broadcast launches in {LM_ITERS} "
+    print(f"matrix_free: explicit_s='never', "
+          f"{counts['seg_reduce_sorted']} reduce and "
+          f"{counts['seg_broadcast']} broadcast launches in {LM_ITERS} "
           f"LM iterations ({3 + cg} and 2 per iteration at {cg} CG "
           f"steps, as worked out from the code), "
           + ", ".join(f"{v} {k}" for k, v in mv_counts.items())
@@ -1625,7 +1577,7 @@ def _solve_counted(what, fn, iters, want_per_iter):
     stray = sorted(set(syncs) - _linalg_sites())
     check(not stray, f"{what}: synchronizing calls outside torch.linalg: "
           f"{ {k: syncs[k] for k in stray} }")
-    want = {"hamming_top2": 0, "hamming_table": 0, "pcg_trip": 0,
+    want = {"hamming_top2": 0, "hamming_distance": 0, "pcg_trip": 0,
             **{k: v * iters for k, v in want_per_iter.items()}}
     check(counts == want, f"{what}: launches {counts}, expected {want}")
     return out, counts
@@ -1704,7 +1656,7 @@ def phase_ba_dataset(dev, smi):
         t0 = time.perf_counter()
         (out, info), counts = _solve_counted(
             f"ba_dataset {name}", lambda: ba.solve_ba(pr, init, cfg), iters,
-            dict(segmm_g_a=1, seg_reduce=3, seg_broadcast=1,
+            dict(dense_g_a_window=1, seg_reduce_sorted=3, seg_broadcast=1,
                  pcg_trip=cg_trips(cfg, init.p.dtype)))
         solve_s = time.perf_counter() - t0
         held = _held_run(f"ba_dataset {name}",
@@ -1752,7 +1704,8 @@ def phase_ba_dataset(dev, smi):
                       f"{abs(c1 - c1_cpu) / abs(c1_cpu):.2e} from the CPU's "
                       f"(rtol 1e-4)")
         print(f"ba_dataset: {name} ({iters} LM iterations, f64, explicit S):"
-              f" {counts['segmm_g_a']} G/A, {counts['seg_reduce']} reduce, "
+              f" {counts['dense_g_a_window']} G/A, "
+              f"{counts['seg_reduce_sorted']} reduce, "
               f"{counts['seg_broadcast']} broadcast launches, no sync outside"
               f" torch.linalg; cost {c0:.6e} -> {c1:.6e} (CPU {c1_cpu:.6e}),"
               f" accepted {int(info['accepted'].sum())}/{iters}; {bounds}; "
@@ -1772,8 +1725,8 @@ def _batched_checked(what, problems, states, cfg, own, calls_per_iter,
     B, iters = len(problems), cfg.max_iterations
     (_, info), counts = _solve_counted(
         what, lambda: ba.solve_ba_batched(problems, states, cfg), iters,
-        dict(segmm_g_a=calls_per_iter, seg_reduce=3, seg_broadcast=1,
-             pcg_trip=trips_per_iter))
+        dict(dense_g_a_window=calls_per_iter, seg_reduce_sorted=3,
+             seg_broadcast=1, pcg_trip=trips_per_iter))
     costs = info["costs"].cpu()
     accepted = info["accepted"].cpu()
     worst, exact = 0.0, 0
@@ -1790,8 +1743,9 @@ def _batched_checked(what, problems, states, cfg, own, calls_per_iter,
           f"{what}: a window's cost did not fall")
     held = _held_run(what, lambda: ba.solve_ba_batched(problems, states, cfg),
                      counts)
-    print(f"ba_batched: {what}: per LM iteration {counts['segmm_g_a'] // iters}"
-          f" G/A, {counts['seg_reduce'] // iters} reduce, "
+    print(f"ba_batched: {what}: per LM iteration "
+          f"{counts['dense_g_a_window'] // iters} G/A, "
+          f"{counts['seg_reduce_sorted'] // iters} reduce, "
           f"{counts['seg_broadcast'] // iters} broadcast launches, "
           f"{counts['pcg_trip'] // iters} CG trip kernel calls (the code: "
           f"{calls_per_iter}, 3, 1, {trips_per_iter}), no sync outside "
@@ -1857,7 +1811,7 @@ def phase_ba_large(dev, smi):
     torch.cuda.reset_peak_memory_stats(dev)
     (_, info), counts = _solve_counted(
         "ba_large", lambda: ba.solve_ba(problem, state, cfg), BA_LARGE_ITERS,
-        dict(segmm_g_a=len(calls), seg_reduce=3, seg_broadcast=1,
+        dict(dense_g_a_window=len(calls), seg_reduce_sorted=3, seg_broadcast=1,
              pcg_trip=cg_trips(cfg, state.p.dtype)))
     peak = torch.cuda.max_memory_allocated(dev)
     c0 = float(info["initial_cost"])
@@ -1933,13 +1887,14 @@ def phase_vio(dev, smi):
     # trip kernel calls (D = 15)
     trips = cg_trips(bench_problem.vio_config("pcg"), init.p.dtype)
     wants = {
-        "auto": (dict(segmm_g_a=it, seg_reduce=3 * it, seg_broadcast=it,
-                      hamming_top2=0, hamming_table=0, pcg_trip=0),
-                 dict.fromkeys(MATVEC_COUNTED, 0)),
-        "pcg": (dict(segmm_g_a=0, seg_reduce=(3 + cg) * it,
-                     seg_broadcast=2 * it, hamming_top2=0, hamming_table=0,
+        "auto": (dict(dense_g_a_window=it, seg_reduce_sorted=3 * it,
+                      seg_broadcast=it, hamming_top2=0, hamming_distance=0,
+                      pcg_trip=0),
+                 dict.fromkeys(matvec_launches(), 0)),
+        "pcg": (dict(dense_g_a_window=0, seg_reduce_sorted=(3 + cg) * it,
+                     seg_broadcast=2 * it, hamming_top2=0, hamming_distance=0,
                      pcg_trip=trips * it),
-                dict.fromkeys(MATVEC_COUNTED, cg * it)),
+                dict.fromkeys(matvec_launches(), cg * it)),
     }
     cpu = torch.device("cpu")
     problem_cpu, init_cpu = to_device(problem, cpu), to_device(init, cpu)
@@ -1973,9 +1928,10 @@ def phase_vio(dev, smi):
             rates.append(rate)
         listed = ", ".join(f"{Path(k).name}:{k.rsplit(':', 1)[1]} x{v}"
                            for k, v in sorted(syncs.items())) or "none"
-        print(f"vio {solver}: {counts['segmm_g_a']} G/A, "
-              f"{counts['seg_reduce']} reduce and {counts['seg_broadcast']} "
-              f"broadcast launches, {mv_counts['matvec_pose_side']} of each "
+        print(f"vio {solver}: {counts['dense_g_a_window']} G/A, "
+              f"{counts['seg_reduce_sorted']} reduce and "
+              f"{counts['seg_broadcast']} broadcast launches, "
+              f"{mv_counts['matvec_pose_side']} of each "
               f"matvec kernel, {counts['pcg_trip']} CG trip kernel calls "
               f"in {it} LM iterations (as worked out from "
               f"the code); synchronizing calls: {listed}; cost {c0:.6e} -> "
@@ -2018,8 +1974,9 @@ def phase_euroc(dev, smi):
         # per LM iteration on the dense path (N * 15 <= dense_max_pose_dim
         # and M <= dense_max_landmarks): one G/A build, the reduces of Hll,
         # bl and back-substitution, schur_rhs's broadcast
-        want = dict(segmm_g_a=it, seg_reduce=3 * it, seg_broadcast=it,
-                    hamming_top2=0, hamming_table=0, pcg_trip=0)
+        want = dict(dense_g_a_window=it, seg_reduce_sorted=3 * it,
+                    seg_broadcast=it, hamming_top2=0, hamming_distance=0,
+                    pcg_trip=0)
         reset_launches()
         (state, info), syncs = _sync_free(
             lambda: vio.solve_vio(problem, init, cfg))
@@ -2061,8 +2018,9 @@ def phase_euroc(dev, smi):
           f"{int((problem.obs_weight > 0).sum())} live observations; built "
           f"in {build_s:.3f} s on the card ({build_cpu_s:.3f} s on the CPU), "
           f"f32 | {smi}")
-    print(f"euroc: {counts['segmm_g_a']} G/A, {counts['seg_reduce']} reduce "
-          f"and {counts['seg_broadcast']} broadcast launches in {it} LM "
+    print(f"euroc: {counts['dense_g_a_window']} G/A, "
+          f"{counts['seg_reduce_sorted']} reduce and "
+          f"{counts['seg_broadcast']} broadcast launches in {it} LM "
           f"iterations (dense path, as worked out from the code); "
           f"synchronizing calls: {listed}; cost {c0:.6e} -> {cost:.6e} (CPU, "
           f"plain versions: {rep_c['final_cost']:.6e}, relative difference "
@@ -2100,9 +2058,10 @@ def _windowed_launches(iters, n_marg, trips_per_iter=0):
     (``vio_marginalize_device``, ``vio_reduced_hessian`` or
     ``ba_reduced_hessian``): 1 G/A, the reduces of Hll and bl, 1
     broadcast."""
-    return dict(segmm_g_a=iters + n_marg, seg_reduce=3 * iters + 2 * n_marg,
+    return dict(dense_g_a_window=iters + n_marg,
+                seg_reduce_sorted=3 * iters + 2 * n_marg,
                 seg_broadcast=iters + n_marg, hamming_top2=0,
-                hamming_table=0, pcg_trip=trips_per_iter * iters)
+                hamming_distance=0, pcg_trip=trips_per_iter * iters)
 
 
 def _solver_checked(what, fn, n_marg_of, sync_debug=True, trips_per_iter=0):
@@ -2241,14 +2200,16 @@ def phase_windowed(dev, smi):
           f"(overlap {rep['overlap']}), 2 passes, f32 (hessian_dtype "
           f"{rep['hessian_dtype']}), {rep['num_landmarks_padded']} landmark "
           f"slots a window | {smi}")
-    print(f"windowed: {counts['segmm_g_a']} G/A, {counts['seg_reduce']} "
-          f"reduce and {counts['seg_broadcast']} broadcast launches in "
+    print(f"windowed: {counts['dense_g_a_window']} G/A, "
+          f"{counts['seg_reduce_sorted']} reduce and "
+          f"{counts['seg_broadcast']} broadcast launches in "
           f"{iters} LM iterations and {_vio_marg_count(rep)} device "
           f"complements (as worked out from the code; freeze: "
-          f"{counts_f['segmm_g_a']}/{counts_f['seg_reduce']}/"
+          f"{counts_f['dense_g_a_window']}/{counts_f['seg_reduce_sorted']}/"
           f"{counts_f['seg_broadcast']} in "
           f"{sum(rep_f['window_iterations'])} iterations; the first 2 "
-          f"windows: {counts2['segmm_g_a']}/{counts2['seg_reduce']}/"
+          f"windows: {counts2['dense_g_a_window']}/"
+          f"{counts2['seg_reduce_sorted']}/"
           f"{counts2['seg_broadcast']} in "
           f"{sum(two[1]['window_iterations'])} iterations and "
           f"{_vio_marg_count(two[1])} complements); "
@@ -2289,12 +2250,13 @@ def phase_mh01_scale(dev, smi):
           f"{MH01_SIM.duration:g} s: {rep['num_keyframes']} keyframes, "
           f"{rep['num_windows']} windows of {rep['window']} (overlap "
           f"{rep['overlap']}), f32 with hessian_dtype "
-          f"{rep['hessian_dtype']}; {counts['segmm_g_a']} G/A, "
-          f"{counts['seg_reduce']} reduce and {counts['seg_broadcast']} "
-          f"broadcast launches in {sum(rep['window_iterations'])} LM "
+          f"{rep['hessian_dtype']}; {counts['dense_g_a_window']} G/A, "
+          f"{counts['seg_reduce_sorted']} reduce and "
+          f"{counts['seg_broadcast']} broadcast launches in "
+          f"{sum(rep['window_iterations'])} LM "
           f"iterations and {_vio_marg_count(rep)} device complements (as "
           f"worked out from the code; the first 2 windows: "
-          f"{counts2['segmm_g_a']}/{counts2['seg_reduce']}/"
+          f"{counts2['dense_g_a_window']}/{counts2['seg_reduce_sorted']}/"
           f"{counts2['seg_broadcast']} in "
           f"{sum(two[1]['window_iterations'])} iterations and "
           f"{_vio_marg_count(two[1])} complements); synchronizing calls "
@@ -2358,9 +2320,10 @@ def phase_windowed_ba(dev, smi):
           f"nb_landmarks=120, steps=2000, fx=fy=200, hz=10), numpy seeds 0 "
           f"and 1): {N} frames, {len(c['tracks'])} observations, "
           f"{rep['num_windows']} windows of {rep['window']} (overlap "
-          f"{rep['overlap']}), f32; {counts['segmm_g_a']} G/A, "
-          f"{counts['seg_reduce']} reduce and {counts['seg_broadcast']} "
-          f"broadcast launches and {counts['pcg_trip']} CG trip kernel "
+          f"{rep['overlap']}), f32; {counts['dense_g_a_window']} G/A, "
+          f"{counts['seg_reduce_sorted']} reduce and "
+          f"{counts['seg_broadcast']} broadcast launches and "
+          f"{counts['pcg_trip']} CG trip kernel "
           f"calls in {iters} LM iterations and "
           f"{rep['num_windows'] - 1} reduced Hessians (explicit-S PCG, as "
           f"worked out from the code); synchronizing calls inside the "
@@ -2788,13 +2751,6 @@ def phase_hamming(frames, dev, smi, popc_rate):
           f"{', '.join(c[0] for c in table_edges + tables)} and on banks 4 "
           f"bytes past a 16-byte boundary")
 
-    rates = bench_designs.mma_rates(dev)
-    b1_rate = rates["b1"]
-    print("hamming: mma.sync on register operands, 8 blocks of 8 warps per "
-          "SM, device time: " + ", ".join(
-              f"{k} {v:.4e} operations/s" for k, v in rates.items())
-          + f" | {smi}")
-
     frame = cases["both"][0][1:]
     for name, ops, reps, plain_reps in (
             ("frame 512x512x16", frame, 50, 50),
@@ -2824,33 +2780,23 @@ def phase_hamming(frames, dev, smi, popc_rate):
             (tables[0][0], tables[0][1:3], 10, 2),
             (tables[1][0], tables[1][1:3], 5, 1)):
         ms = _time_calls(hamming.hamming_distance, [(d1, d2)], reps)
-        first_ms = _time_calls(lambda a, b: bench_designs.table_design(0, a, b),
-                               [(d1, d2)], reps)
         plain_ms = _time_calls(hamming.hamming_distance_reference, [(d1, d2)],
                                plain_reps)
         lib_ms, lib_same = _table_library(d1, d2, plain_reps)
-        # bytes: both banks read once, the int32 table written once;
-        # operations: an AND and an add per bit pair, at the .b1 rate
-        # measured above (the first kernel's: one XOR + popcount per word
-        # pair at the popcount issue rate)
+        # bytes: both banks read once, the int32 table written once (the
+        # products on the tensor cores take far less: csrc/hamming.cu)
         n1, w = d1.shape
         n2 = d2.shape[0]
-        bytes_ms, _ = bound((n1 + n2) * w * 4 + n1 * n2 * 4)
-        ops_ms = 2 * n1 * n2 * 32 * w / b1_rate * 1e3
-        popc_ms = n1 * n2 * w / popc_rate * 1e3
-        bound_ms, bound_by = ((bytes_ms, "bytes") if bytes_ms >= ops_ms
-                              else (ops_ms, "operations"))
+        bound_ms, bound_by = bound((n1 + n2) * w * 4 + n1 * n2 * 4)
         if name.startswith("frame"):
             out["table"].update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                                 bound_by=bound_by, library_ms=lib_ms)
         lib = ("none" if lib_ms is None else
                f"{lib_ms:.4f} ms (torch.cdist(p=0) on 0/1 f32 bits, equal to "
                f"the plain table: {lib_same})")
-        print(f"hamming: table {name}: {ms:.4f} ms (kernel) vs {first_ms:.4f} "
-              f"ms (first kernel, CUDA cores) vs {plain_ms:.4f} ms (plain) vs "
-              f"{lib} (library); bounds {bytes_ms:.6f} ms (bytes), "
-              f"{ops_ms:.6f} ms (bit operations at the .b1 rate), "
-              f"{popc_ms:.6f} ms (word operations at the popcount rate); "
+        print(f"hamming: table {name}: {ms:.4f} ms (kernel) vs "
+              f"{plain_ms:.4f} ms (plain) vs {lib} (library); bound "
+              f"{bound_ms:.6f} ms ({bound_by}); "
               f"{n1 * n2 * 4 / ms / 1e9:.3f} TB/s of table written; device "
               f"time | {smi}")
     return out
@@ -3109,8 +3055,9 @@ def phase_pixels(dev, smi):
         T = len(frames)
         check(np.array_equal(frames, euroc_sim.cam0_frames(p, seed=0)),
               "pixels: the decoded PNGs differ from the rendered frames")
-        want = dict(segmm_g_a=it, seg_reduce=3 * it, seg_broadcast=it,
-                    hamming_top2=T, hamming_table=0, pcg_trip=0)
+        want = dict(dense_g_a_window=it, seg_reduce_sorted=3 * it,
+                    seg_broadcast=it, hamming_top2=T, hamming_distance=0,
+                    pcg_trip=0)
         reset_launches()
         _, rep = euroc_vio.run_euroc_vio_from_images(
             root, params, K=K, generator=_gen(dev, 0), device=dev)
@@ -3287,8 +3234,8 @@ def phase_orb(frames, dev, smi, popc_rate):
     reset_launches()
     tracks, dt = run(plain=False)
     counts = launch_counts()
-    want = dict(segmm_g_a=0, seg_reduce=0, seg_broadcast=0,
-                hamming_top2=len(frames), hamming_table=0, pcg_trip=0)
+    want = dict(dense_g_a_window=0, seg_reduce_sorted=0, seg_broadcast=0,
+                hamming_top2=len(frames), hamming_distance=0, pcg_trip=0)
     check(counts == want, f"orb: launches {counts}, expected {want}")
     tracks_p, dt_p = run(plain=True)
     check(np.array_equal(tracks, tracks_p), "orb: tracks with the top-2 "
@@ -3470,7 +3417,8 @@ def phase_vo_pair(dev, smi):
         results.append(res)
         times.append(dt)
     counts = launch_counts()
-    check(counts["hamming_top2"] == VO_SEEDS and counts["hamming_table"] == 0,
+    check(counts["hamming_top2"] == VO_SEEDS
+          and counts["hamming_distance"] == 0,
           f"vo_pair: launches {counts} in {VO_SEEDS} pairs")
     errs = [bench_frontend.rotation_error(r.T_21.rotation().cpu().numpy(),
                                           R_true) for r in results]
@@ -3511,8 +3459,8 @@ def phase_batched(frames, dev, smi):
         stack, params=params, device=dev,
         generators=[_gen(dev, b) for b in range(BATCH)]))
     counts = launch_counts()
-    want = dict(segmm_g_a=0, seg_reduce=0, seg_broadcast=0,
-                hamming_top2=BATCH * T, hamming_table=0, pcg_trip=0)
+    want = dict(dense_g_a_window=0, seg_reduce_sorted=0, seg_broadcast=0,
+                hamming_top2=BATCH * T, hamming_distance=0, pcg_trip=0)
     check(counts == want, f"batched: launches {counts}, expected {want}")
     singles = []
     for b in range(BATCH):
@@ -3748,7 +3696,8 @@ def phase_float_flann(dev, smi):
                 lambda: flann_float.build_float_index(D2, m2, p))
             counts = launch_counts()
             want = p.kmeans_iterations if method != "kdtree" else 0
-            check(counts["seg_reduce"] == want and sum(counts.values()) == want,
+            check(counts["seg_reduce_sorted"] == want
+                  and sum(counts.values()) == want,
                   f"float_flann {cfg} {method}: launches {counts}, want "
                   f"{want} seg_reduce")
             flann_float.float_match(D1, m1, index, p)
@@ -4400,14 +4349,15 @@ def _check_dist_ba(outs, world, refs, smi):
     cg = _dist_cfg().cg_max_iters
     # the sharded solve's CG vectors are full replicas: every trip through
     # the trip kernel
-    want = dict(segmm_g_a=0, seg_reduce=(3 + cg) * LM_ITERS,
+    want = dict(dense_g_a_window=0, seg_reduce_sorted=(3 + cg) * LM_ITERS,
                 seg_broadcast=(2 + cg) * LM_ITERS, hamming_top2=0,
-                hamming_table=0, pcg_trip=cg * LM_ITERS)
+                hamming_distance=0, pcg_trip=cg * LM_ITERS)
     for r, o in enumerate(outs):
         check(o["ba_counts"] == want, f"dist_ba {world}: rank {r} launched "
               f"{o['ba_counts']}, expected {want}")
         held = {k: v[0] for k, v in o["ba_held"].items()}
-        check(held == {"seg_reduce": 3 + cg, "seg_broadcast": 2 + cg},
+        check(held == {"seg_reduce_sorted": 3 + cg,
+                       "seg_broadcast": 2 + cg},
               f"dist_ba {world}: rank {r} held {held} calls of one "
               f"iteration to the plain versions")
     _same_on_ranks(f"dist_ba {world}", outs, ("ba_q", "ba_p", "ba_lm",
@@ -4486,9 +4436,9 @@ def _check_group2(outs, smi):
     _same_on_ranks("dist_vio", outs, ("vio_costs", "vio_p"))
     cfg = bench_problem.vio_config("pcg")
     it, cg = cfg.max_iterations, cfg.cg_max_iters
-    want = dict(segmm_g_a=0, seg_reduce=(3 + cg) * it,
-                seg_broadcast=(2 + cg) * it, hamming_top2=0, hamming_table=0,
-                pcg_trip=cg * it)
+    want = dict(dense_g_a_window=0, seg_reduce_sorted=(3 + cg) * it,
+                seg_broadcast=(2 + cg) * it, hamming_top2=0,
+                hamming_distance=0, pcg_trip=cg * it)
     for r, o in enumerate(outs):
         check(o["vio_counts"] == want, f"dist_vio: rank {r} launched "
               f"{o['vio_counts']}, expected {want}")
@@ -4558,8 +4508,8 @@ def _check_lm_step(outs, world, smi):
             check(run["counts"] == want, f"{what}: rank {r} launched "
                   f"{run['counts']}, the flat bank {want}")
             held = {k: run["counts"][k] for k in run["held"]}
-            check(run["held"] == held and set(held) == {"seg_reduce",
-                                                        "seg_broadcast"},
+            check(run["held"] == held
+                  and set(held) == {"seg_reduce_sorted", "seg_broadcast"},
                   f"{what}: rank {r} held {run['held']} calls of a step "
                   f"that launched {run['counts']}")
         check(np.array_equal(np.concatenate(
@@ -4581,8 +4531,9 @@ def _check_lm_step(outs, world, smi):
               f"rank, {r0['bank']:,} observation slots a rank): cost "
               f"{r0['cost']:.12e}, a local LM iteration {local['cost']:.12e} "
               f"(rel {rel:.3e}, rtol 1e-7), states {gap:.3e} apart; "
-              f"{c['seg_reduce']} reduce and {c['seg_broadcast']} broadcast "
-              f"launches per rank (the flat bank's), held to the plain "
+              f"{c['seg_reduce_sorted']} reduce and {c['seg_broadcast']} "
+              f"broadcast launches per rank (the flat bank's), held to the "
+              f"plain "
               f"versions bit for bit; ranks equal bit for bit, dp replicas "
               f"of a chunk too; {mem} | {smi}")
 
@@ -4694,10 +4645,10 @@ def phase_pp_overlap(dev, smi):
 def phase_utils(smi):
     """Runs :func:`utils_main` in a child process of this script
     (``--utils``): ``torch.profiler`` leaves its hooks in the process that
-    used it, which slows that process's later launches (see
-    :func:`_launches_per_iteration`): with this phase first in this
-    process the matrix-free headline solve ran 14.2-14.4 LM iterations/s
-    against 17.8-21.7 without it (NVIDIA H100 80GB HBM3, 700 W)."""
+    used it, which slows that process's later launches: with this phase
+    first in this process the matrix-free headline solve ran 14.2-14.4 LM
+    iterations/s against 17.8-21.7 without it (NVIDIA H100 80GB HBM3,
+    700 W)."""
     proc = subprocess.run(
         [sys.executable, str(HERE / "chip_smoke.py"), "--utils", smi],
         env=dict(os.environ, PYTHONPATH=str(HERE)), capture_output=True,
@@ -4828,7 +4779,7 @@ def main():
         _kernel_entry("segmm_g_a", KERNEL_SOURCE, KERNEL_REPLACES,
                       ga_launches, g_a),
         _kernel_entry("seg_reduce", SEG_SOURCE, REDUCE_REPLACES,
-                      mf_counts["seg_reduce"], seg["seg_reduce"]),
+                      mf_counts["seg_reduce_sorted"], seg["seg_reduce"]),
         _kernel_entry("seg_broadcast", SEG_SOURCE, BROADCAST_REPLACES,
                       mf_counts["seg_broadcast"], seg["seg_broadcast"]),
         _kernel_entry("hamming_top2", HAMMING_SOURCE, TOP2_REPLACES,

@@ -39,10 +39,10 @@
 // else 4 rows of 128 lanes
 // in blocks of 512, one row per thread, so that each SM still stages the
 // bank once and runs 4 warps per scheduler (a frame's 512 queries: 128
-// blocks, 4 columns a lane; 2,048 queries: 512 blocks). bench_designs.py
-// times the alternatives: the first version's one thread per row (4 busy
-// SMs at 512 queries), the bank read through L1 instead of staged, other
-// lane counts and rows per thread.
+// blocks, 4 columns a lane; 2,048 queries: 512 blocks). The alternatives
+// timed against it (PERF_APPENDIX.md): the first version's one thread per
+// row (4 busy SMs at 512 queries), the bank read through L1 instead of
+// staged, other lane counts and rows per thread.
 //
 // Bound. N1 * N2 * W XOR+popcount word operations. __popc issues at 16 per
 // SM per clock, so the H100 SXM's 132 SMs at their 1.98 GHz maximum clock
@@ -69,15 +69,14 @@
 //
 // Bound. The write of 4 N1 N2 bytes: 67 MB, 20 us at 3.35 TB/s for 4,096 x
 // 4,096 (the two banks are 0.5 MB). The tensor cores' rate on .b1 is not
-// in the H100 data sheet; bench_designs.py measures it (1.03e16 operations
-// a second on an H100 SXM at 700 W, an AND and an add per bit pair), so the
-// products take 1.7 us there: the write bounds the table. The first version
-// (one block per 32 x 32 tile, XOR + POPC on the CUDA cores, kept in
-// table_designs.cu) could at best reach the popcount issue rate above:
-// 64 us at 4,096 x 4,096 x 16. One tile shape ships: the matcher's tables
-// are at most a frame's 512 x 512, where 64-tiles fill the SMs; 128 x 128
-// tiles of 8 warps write large tables (4,096^2 and up) about 8% faster and
-// are kept in table_designs.cu until a path of the port makes such tables.
+// in the H100 data sheet; it was measured at 1.03e16 operations a second
+// on an H100 SXM at 700 W (an AND and an add per bit pair;
+// PERF_APPENDIX.md), so the products take 1.7 us there: the write bounds
+// the table. The first version (one block per 32 x 32 tile, XOR + POPC on
+// the CUDA cores) could at best reach the popcount issue rate above: 64 us
+// at 4,096 x 4,096 x 16. One tile shape ships: the matcher's tables are at
+// most a frame's 512 x 512, where 64-tiles fill the SMs; 128 x 128 tiles
+// of 8 warps wrote large tables (4,096^2 and up) about 8% faster.
 
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>

@@ -45,8 +45,8 @@
 // ba_large's problem (ids ordered by bearing: a pose's ids span ~31% of the
 // landmarks) the two cross between 30,000 and 40,000 landmarks at C = 3
 // (y 360-480 KB); at its 100,000 landmarks (1.2 MB) the first version
-// takes 0.92x the striding kernel's time at C = 3 and 0.89x at C = 6.
-// bench_designs.py holds the other designs and times both there.
+// takes 0.92x the striding kernel's time at C = 3 and 0.89x at C = 6
+// (PERF_APPENDIX.md has the other designs' times).
 //
 // Bound. Both are memory bound. The reduce must read vals (C*K values), sigma
 // (K ids) and offsets (M+1) and write C*M values: at the headline (C = 3,
@@ -57,7 +57,7 @@
 // round trips take longer than the bytes. A lane group per landmark (8 lanes
 // over the run's slots, all channels, a shuffle fold in slot order) and one
 // thread per landmark for all channels measured no faster at the headline
-// and slower at long runs (bench_seg_designs.py holds them). The broadcast
+// and slower at long runs (PERF_APPENDIX.md). The broadcast
 // must read y (C*M values) and idx (K ids) and write C*K values: at the
 // headline 1.1 MB, 0.32 us at 3.35 TB/s. There about half of its time is
 // the launch floor of a replayed graph; at large K its gathers, one 32-byte

@@ -1,21 +1,27 @@
-"""Build the package's CUDA sources into shared libraries at first use.
+"""Build, load and launch the package's CUDA libraries.
 
-Each library is compiled by ``nvcc`` for ``sm_90a`` (Hopper) from the
-sources under ``libwave_tpu_torch/csrc`` into ``libwave_tpu_torch/_build``
-(listed in ``.gitignore``), with a plain C interface that ``ctypes`` loads.
-The output name carries a hash of the sources and flags, so an edited
-source rebuilds and concurrent builds never see a half-written file
-(each compiles to a private temporary name and renames it into place).
+The module that wraps a library declares it once (:func:`library`: name,
+sources under ``libwave_tpu_torch/csrc``, entry points' C signatures).
+:func:`load` compiles it at first use, never at import, with ``nvcc`` for
+``sm_90a`` (Hopper) into ``libwave_tpu_torch/_build`` (listed in
+``.gitignore``) and loads it with ``ctypes``. The output name carries a
+hash of the sources and flags, so an edited source rebuilds and concurrent
+builds never see a half-written file (each compiles to a private temporary
+name and renames it into place). :func:`launch` calls an entry point.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
 import hashlib
 import os
 import shutil
 import subprocess
 from pathlib import Path
+
+import torch
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -47,17 +53,14 @@ def _nvcc() -> str:
     raise NvccError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
-def build(name: str, sources: list[str],
-          includes: tuple[str, ...] = ()) -> tuple[Path, str]:
+def _compile(name: str, sources: tuple[str, ...]) -> tuple[Path, str]:
     """Compile ``sources`` (file names under ``csrc``) into
-    ``_build/lib<name>-<hash>.so``. ``includes`` names the files under
-    ``csrc`` that the sources ``#include``: they enter the hash, so an edit
-    to one rebuilds. Returns the library's path and the compiler's output
-    (``-Xptxas -v``: registers, shared memory, spills); an up-to-date
-    library is reused and its saved output returned."""
+    ``_build/lib<name>-<hash>.so``. Returns the library's path and the
+    compiler's output (``-Xptxas -v``: registers, shared memory, spills);
+    an up-to-date library is reused and its saved output returned."""
     paths = [CSRC / s for s in sources]
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for p in paths + [CSRC / s for s in includes]:
+    for p in paths:
         digest.update(p.name.encode())
         digest.update(p.read_bytes())
     stem = f"lib{name}-{digest.hexdigest()[:16]}"
@@ -78,8 +81,56 @@ def build(name: str, sources: list[str],
     return lib, out
 
 
-def load(name: str, sources: list[str],
-         includes: tuple[str, ...] = ()) -> tuple[ctypes.CDLL, str]:
-    """:func:`build`, then load the library with ``ctypes``."""
-    lib, out = build(name, sources, includes)
-    return ctypes.CDLL(str(lib)), out
+@dataclasses.dataclass(frozen=True, eq=False)
+class Library:
+    """A CUDA library of the package: its ``name``, its ``sources`` under
+    ``csrc`` and its entry points' signatures: by entry point, the
+    ``ctypes`` attributes that give its argument and result types."""
+
+    name: str
+    sources: tuple[str, ...]
+    signatures: dict
+
+
+# every library of the package by name, as the modules that wrap them
+# declare them (:func:`library`)
+LIBRARIES: dict[str, Library] = {}
+
+
+def library(name: str, sources: tuple[str, ...],
+            signatures: dict) -> Library:
+    """Declare the library ``name``; nothing is built until :func:`load`."""
+    lib = LIBRARIES[name] = Library(name, tuple(sources), signatures)
+    return lib
+
+
+@functools.cache
+def load(lib: Library) -> tuple[ctypes.CDLL, str]:
+    """Build (or reuse) and load ``lib``, its entry points' types set;
+    returns it with the compiler's ``-Xptxas -v`` report."""
+    path, log = _compile(lib.name, lib.sources)
+    cdll = ctypes.CDLL(str(path))
+    for fn_name, types in lib.signatures.items():
+        for attr, value in types.items():
+            setattr(getattr(cdll, fn_name), attr, value)
+    return cdll, log
+
+
+def build(lib: Library) -> str:
+    """Build (or reuse) and load ``lib``; returns the compiler's report."""
+    return load(lib)[1]
+
+
+def launch(lib: Library, fn_name: str, *args):
+    """Call ``lib``'s entry point ``fn_name`` on the current stream of the
+    first argument's device: tensors go as their data pointers, the stream
+    last; raise if the launch failed."""
+    cdll, _ = load(lib)
+    dev = args[0].device
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = getattr(cdll, fn_name)(
+            *(a.data_ptr() if isinstance(a, torch.Tensor) else a
+              for a in args), stream)
+    if err != 0:
+        raise RuntimeError(f"{fn_name} launch failed: CUDA error {err}")

@@ -16,20 +16,19 @@ version:
 On a CUDA tensor each wrapper launches its kernel (built with ``nvcc`` for
 ``sm_90a`` at first use, bound with ``ctypes``) or raises; on a CPU tensor it
 returns the plain version. Each wrapper counts its launches in
-``<wrapper>.launches``.
+``<wrapper>.launches``, registered with ``utils.trace.counts_launches``.
 """
 
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import torch
 
 from libwave_tpu_torch.ops import _build
+from libwave_tpu_torch.utils.trace import counts_launches
 
 BIG = 1 << 24  # distance of a masked reference row
-_KERNEL_SOURCES = ["hamming.cu"]
 _WORDS = (1, 2, 4, 8, 16, 32)  # descriptor widths the kernels are built for
 _CHUNK_BYTES = 1 << 26  # bytes of XOR words per chunk of the plain versions
 
@@ -89,24 +88,12 @@ def hamming_top2_reference(d1: torch.Tensor, d2: torch.Tensor,
     return best, second, idx
 
 
-@functools.cache
-def _library() -> tuple[ctypes.CDLL, str]:
-    lib, log = _build.load("hamming", _KERNEL_SOURCES)
-    lib.hamming_top2_i32.argtypes = (
-        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-    )
-    lib.hamming_top2_i32.restype = ctypes.c_int
-    lib.hamming_table_i32.argtypes = (
-        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-    )
-    lib.hamming_table_i32.restype = ctypes.c_int
-    return lib, log
-
-
-def build() -> str:
-    """Build (or reuse) and load the CUDA library; returns the compiler's
-    ``-Xptxas -v`` report."""
-    return _library()[1]
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_LIB = _build.library("hamming", ("hamming.cu",), {
+    "hamming_top2_i32": dict(argtypes=[_P] * 6 + [_I] * 3 + [_P],
+                             restype=_I),
+    "hamming_table_i32": dict(argtypes=[_P] * 3 + [_I] * 3 + [_P],
+                              restype=_I)})
 
 
 def _check_cuda_inputs(fn: str, d1: torch.Tensor, d2: torch.Tensor,
@@ -139,10 +126,7 @@ def _check_cuda_inputs(fn: str, d1: torch.Tensor, d2: torch.Tensor,
             raise ValueError(f"{fn}: {name} must be contiguous")
 
 
-def _stream(device: torch.device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
-
-
+@counts_launches
 def hamming_top2(d1: torch.Tensor, d2: torch.Tensor,
                  mask2: torch.Tensor | None = None):
     """Fused Hamming + per-row top-2: (N1, W) x (N2, W) int32 words ->
@@ -164,20 +148,13 @@ def hamming_top2(d1: torch.Tensor, d2: torch.Tensor,
             for _ in range(3)]
     if n1 == 0:
         return tuple(outs)
-    lib, _ = _library()
-    with torch.cuda.device(d1.device):
-        err = lib.hamming_top2_i32(
-            d1.data_ptr(), d2.data_ptr(),
-            None if mask2 is None else mask2.data_ptr(),
-            *(o.data_ptr() for o in outs), n1, d2.shape[0], w,
-            _stream(d1.device),
-        )
-    if err != 0:
-        raise RuntimeError(f"hamming_top2_i32 launch failed: CUDA error {err}")
+    _build.launch(_LIB, "hamming_top2_i32", d1, d2, mask2, *outs, n1,
+                  d2.shape[0], w)
     hamming_top2.launches += 1
     return tuple(outs)
 
 
+@counts_launches
 def hamming_distance(d1: torch.Tensor, d2: torch.Tensor) -> torch.Tensor:
     """(N1, W) x (N2, W) int32 words -> (N1, N2) int32 Hamming distances.
 
@@ -196,18 +173,6 @@ def hamming_distance(d1: torch.Tensor, d2: torch.Tensor) -> torch.Tensor:
     out = torch.empty((n1, n2), dtype=torch.int32, device=d1.device)
     if n1 == 0 or n2 == 0:
         return out
-    lib, _ = _library()
-    with torch.cuda.device(d1.device):
-        err = lib.hamming_table_i32(
-            d1.data_ptr(), d2.data_ptr(), out.data_ptr(), n1, n2, w,
-            _stream(d1.device),
-        )
-    if err != 0:
-        raise RuntimeError(f"hamming_table_i32 launch failed: CUDA error {err}")
+    _build.launch(_LIB, "hamming_table_i32", d1, d2, out, n1, n2, w)
     hamming_distance.launches += 1
     return out
-
-
-# Kernel launches since the count was last reset (the CPU path adds nothing).
-hamming_top2.launches = 0
-hamming_distance.launches = 0

@@ -26,10 +26,11 @@ use and bound with ``ctypes``:
   block-Jacobi apply and the dots) in one host call, the state kept on the
   device.
 
-Each wrapper launches its kernel on a CUDA tensor (or raises on inputs the
-kernel does not take) and counts the launch in its ``launches`` attribute;
-on a CPU tensor it runs the plain PyTorch version beside it
-(``*_reference``), which nothing on the card path calls.
+Each wrapper launches its kernel on a CUDA tensor through ``_build``'s
+launcher (or raises on inputs the kernel does not take) and counts the
+launch in its ``launches`` attribute, registered with
+``utils.trace.counts_launches``; on a CPU tensor it runs the plain PyTorch
+version beside it (``*_reference``), which nothing on the card path calls.
 
 The G/A kernel and its plain version follow the reference kernel's f32
 contract (``libwave_tpu/ops/segmm.py:213-241``): G is summed and rounded to f32 and A is formed in f32
@@ -49,12 +50,12 @@ version add in the same order.
 from __future__ import annotations
 
 import ctypes
-import functools
 from typing import NamedTuple
 
 import torch
 
 from libwave_tpu_torch.ops import _build
+from libwave_tpu_torch.utils.trace import counts_launches
 
 # symmetric-3x3 component index for (j, l), both triangles
 _SYM3_AT = {
@@ -74,16 +75,13 @@ class EllLayout(NamedTuple):
     offsets: torch.Tensor  # (M+1,) int32 CSR bounds of each landmark in sigma
 
 
-_KERNEL_SOURCES = ["segmm_g_a.cu"]
 _KERNEL_ROWS = 18  # Dj * 3 rows the CUDA kernel is instantiated for
 _TILE_POSES = 4  # poses per block of the G/A kernel (kTP in segmm_g_a.cu)
-_SEG_SOURCES = ["segmm_seg.cu"]
 _SEG_TYPES = {torch.float32: "f32", torch.float64: "f64"}
-_MATVEC_SOURCES = ["schur_matvec.cu"]
 _MATVEC_ROWS = 18  # Dj * 3 rows of W the matvec kernels take
-_PCG_SOURCES = ["schur_pcg.cu"]
 PCG_MAX_D = 15  # pose coordinates the CG trip kernel takes at most (kMaxD)
 _INT32_MAX = 2**31 - 1
+_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 
 
 def dense_g_a_reference(W: torch.Tensor, lm_slot: torch.Tensor,
@@ -163,20 +161,9 @@ def dense_g_a_window_reference(W: torch.Tensor, ell: EllLayout,
                                hinv[:, c0:c1])
 
 
-@functools.cache
-def _library() -> tuple[ctypes.CDLL, str]:
-    lib, log = _build.load("segmm_g_a", _KERNEL_SOURCES)
-    fn = lib.segmm_g_a_window_f32
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [
-        ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return lib, log
-
-
-def build() -> str:
-    """Build (or reuse) and load the CUDA library; returns the compiler's
-    ``-Xptxas -v`` report."""
-    return _library()[1]
+_G_A_LIB = _build.library("segmm_g_a", ("segmm_g_a.cu",), {
+    "segmm_g_a_window_f32": dict(argtypes=[_P] * 6 + [_I] * 8 + [_P],
+                                 restype=_I)})
 
 
 def _check_rows(W):
@@ -251,6 +238,7 @@ def _check_window_inputs(W, ell, hinv, c0, c1, plo, phi):
             raise ValueError(f"dense_g_a_window: {name} must be contiguous")
 
 
+@counts_launches
 def dense_g_a_window(W: torch.Tensor, ell: EllLayout, hinv: torch.Tensor,
                      c0: int, c1: int, plo: int, phi: int):
     """Fused dense-Schur G/A build of the poses ``[plo, phi)`` and landmark
@@ -279,23 +267,10 @@ def dense_g_a_window(W: torch.Tensor, ell: EllLayout, hinv: torch.Tensor,
     A = torch.empty_like(G)
     if phi == plo or c1 == c0:
         return G, A
-    lib, _ = _library()
-    with torch.cuda.device(W.device):
-        stream = torch.cuda.current_stream(W.device).cuda_stream
-        err = lib.segmm_g_a_window_f32(
-            W.data_ptr(), ell.sigma.data_ptr(), ell.offsets.data_ptr(),
-            hinv.data_ptr(), G.data_ptr(), A.data_ptr(), N, P, M, C, c0, c1,
-            plo, phi, stream,
-        )
-    if err != 0:
-        raise RuntimeError(
-            f"segmm_g_a_window_f32 launch failed: CUDA error {err}")
+    _build.launch(_G_A_LIB, "segmm_g_a_window_f32", W, ell.sigma,
+                  ell.offsets, hinv, G, A, N, P, M, C, c0, c1, plo, phi)
     dense_g_a_window.launches += 1
     return G, A
-
-
-# Kernel launches since the count was last reset (the CPU path adds nothing).
-dense_g_a_window.launches = 0
 
 
 def dense_g_a(W: torch.Tensor, lm_slot: torch.Tensor, hinv: torch.Tensor):
@@ -380,25 +355,11 @@ def seg_broadcast_reference(y: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return torch.where(ok, y[:, torch.where(ok, idx, 0).long()], 0)
 
 
-@functools.cache
-def _seg_library() -> tuple[ctypes.CDLL, str]:
-    lib, log = _build.load("segmm_seg", _SEG_SOURCES)
-    for t in _SEG_TYPES.values():
-        fn = getattr(lib, f"seg_reduce_sorted_{t}")
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [
-            ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        fn = getattr(lib, f"seg_broadcast_{t}")
-        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [
-            ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    return lib, log
-
-
-def build_seg() -> str:
-    """Build (or reuse) and load the segment reduce/broadcast library;
-    returns the compiler's ``-Xptxas -v`` report."""
-    return _seg_library()[1]
+_SEG_LIB = _build.library("segmm_seg", ("segmm_seg.cu",), {
+    f"{kind}_{t}": dict(argtypes=[_P] * pointers + [_I] * 3 + [_P],
+                        restype=_I)
+    for t in _SEG_TYPES.values()
+    for kind, pointers in (("seg_reduce_sorted", 4), ("seg_broadcast", 3))})
 
 
 def _check_seg(what, x, ids, C, K):
@@ -428,21 +389,7 @@ def _check_seg(what, x, ids, C, K):
             raise ValueError(f"{what}: {name} must be contiguous")
 
 
-def _launch(library, fn_name, *args):
-    """Call ``fn_name`` of ``library()``'s CUDA library on the current
-    stream of the first argument's device: tensors go as their data
-    pointers, the stream last; raise if the launch failed."""
-    lib, _ = library()
-    dev = args[0].device
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = getattr(lib, fn_name)(
-            *(a.data_ptr() if isinstance(a, torch.Tensor) else a
-              for a in args), stream)
-    if err != 0:
-        raise RuntimeError(f"{fn_name} launch failed: CUDA error {err}")
-
-
+@counts_launches
 def seg_reduce_sorted(vals: torch.Tensor, sigma: torch.Tensor,
                       offsets: torch.Tensor) -> torch.Tensor:
     """Per-segment sums over a sorted slot list: ``vals`` (C, K), ``sigma``
@@ -469,8 +416,8 @@ def seg_reduce_sorted(vals: torch.Tensor, sigma: torch.Tensor,
     out = torch.empty((C, M), dtype=vals.dtype, device=vals.device)
     if C == 0 or M == 0:
         return out
-    _launch(_seg_library, f"seg_reduce_sorted_{_SEG_TYPES[vals.dtype]}",
-            vals, sigma, offsets, out, C, K, M)
+    _build.launch(_SEG_LIB, f"seg_reduce_sorted_{_SEG_TYPES[vals.dtype]}",
+                  vals, sigma, offsets, out, C, K, M)
     seg_reduce_sorted.launches += 1
     return out
 
@@ -490,6 +437,7 @@ def seg_reduce(vals: torch.Tensor, idx: torch.Tensor,
     return seg_reduce_sorted(vals, *sorted_layout(idx, num_segments))
 
 
+@counts_launches
 def seg_broadcast(y: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """(C, M) per-segment values + (K,) segment ids -> (C, K) gathered view
     ``y[:, idx]``; ids outside ``[0, M)`` give zeros (the reference's
@@ -511,15 +459,10 @@ def seg_broadcast(y: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
         return out
     if M == 0:
         return out.zero_()
-    _launch(_seg_library, f"seg_broadcast_{_SEG_TYPES[y.dtype]}", y, idx,
-            out, C, K, M)
+    _build.launch(_SEG_LIB, f"seg_broadcast_{_SEG_TYPES[y.dtype]}", y, idx,
+                  out, C, K, M)
     seg_broadcast.launches += 1
     return out
-
-
-# Kernel launches since the counts were last reset (CPU paths add nothing).
-seg_reduce_sorted.launches = 0
-seg_broadcast.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -595,24 +538,14 @@ def matvec_pose_side_reference(W: torch.Tensor, lm_idx: torch.Tensor,
                    free_pose)
 
 
-@functools.cache
-def _matvec_library() -> tuple[ctypes.CDLL, str]:
-    lib, log = _build.load("schur_matvec", _MATVEC_SOURCES)
-    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.matvec_wt_slots_f32.argtypes = [p, ll, p, p, i, p, i, i, i, p]
-    lib.matvec_landmark_step_f32.argtypes = [p, p, p, i, p]
-    lib.matvec_pose_side_f32.argtypes = [p, ll, p, p, i, p, p, p, i, p, i,
-                                         i, i, p]
-    for fn in (lib.matvec_wt_slots_f32, lib.matvec_landmark_step_f32,
-               lib.matvec_pose_side_f32):
-        fn.restype = ctypes.c_int
-    return lib, log
-
-
-def build_matvec() -> str:
-    """Build (or reuse) and load the matvec library; returns the compiler's
-    ``-Xptxas -v`` report."""
-    return _matvec_library()[1]
+_MATVEC_LIB = _build.library("schur_matvec", ("schur_matvec.cu",), {
+    "matvec_wt_slots_f32": dict(
+        argtypes=[_P, _LL, _P, _P, _I, _P, _I, _I, _I, _P], restype=_I),
+    "matvec_landmark_step_f32": dict(argtypes=[_P, _P, _P, _I, _P],
+                                     restype=_I),
+    "matvec_pose_side_f32": dict(
+        argtypes=[_P, _LL, _P, _P, _I, _P, _P, _P, _I, _P, _I, _I, _I, _P],
+        restype=_I)})
 
 
 def _check_f32(what, named, device):
@@ -628,34 +561,59 @@ def _check_f32(what, named, device):
             raise ValueError(f"{what}: {name} must be contiguous")
 
 
+def _pose_shape_fault(W, x, free_pose):
+    """What of the pose-side shapes the matvec kernels do not take, as a
+    message, or None: W (18, N, Pmax) with N * Pmax < 2^31, x (N, D) with
+    D >= 6, free_pose (N,) or (N, D)."""
+    if W.dim() != 3 or W.shape[0] != _MATVEC_ROWS:
+        return (f"W must be (Dj*3 = {_MATVEC_ROWS} rows, N, Pmax), got "
+                f"shape {tuple(W.shape)}")
+    _, N, P = W.shape
+    if N * P > _INT32_MAX:
+        return f"at most 2^31 - 1 slots, got N={N}, Pmax={P}"
+    D = x.shape[-1] if x.dim() == 2 else -1
+    if x.dim() != 2 or x.shape[0] != N or D < _MATVEC_ROWS // 3:
+        return (f"x must be (N={N}, D >= {_MATVEC_ROWS // 3}), got "
+                f"{tuple(x.shape)}")
+    if tuple(free_pose.shape) not in ((N,), (N, D)):
+        return (f"free_pose must be ({N},) or ({N}, {D}), got "
+                f"{tuple(free_pose.shape)}")
+    return None
+
+
+def takes_matvec(W, x, free_pose, Hpp, Hll_inv) -> bool:
+    """Whether the matvec kernels take ``S x`` on pose-ELL blocks ``W``,
+    ``Hpp``, ``Hll_inv`` and ``free_pose``: on the card, float32, in the
+    shapes the wrappers check (W (18, N, Pmax), x (N, D) with D >= 6,
+    free_pose (N,) or (N, D), Hpp (N, D, D), Hll_inv (6, M))."""
+    return (W.is_cuda and _pose_shape_fault(W, x, free_pose) is None
+            and Hpp.shape == (*x.shape, x.shape[1])
+            and Hll_inv.dim() == 2 and Hll_inv.shape[0] == 6
+            and Hll_inv.shape[1] <= _INT32_MAX
+            and all(t.dtype == torch.float32
+                    for t in (W, x, free_pose, Hpp, Hll_inv)))
+
+
 def _check_pose_inputs(what, W, x, free_pose):
     """W (18, N, P) float32 with contiguous (N, P) planes at any plane
-    stride, x (N, D) with D >= 6 and free_pose (N,) or (N, D), float32,
-    contiguous, on W's device. Returns (N, P, D, free_cols)."""
+    stride, x and free_pose in the shapes :func:`_pose_shape_fault` takes,
+    float32, contiguous, on W's device. Returns (N, P, D, free_cols)."""
     if W.dtype != torch.float32:
         raise TypeError(f"{what} on CUDA takes float32 W, got {W.dtype}")
-    if W.dim() != 3 or W.shape[0] != _MATVEC_ROWS:
-        raise ValueError(f"{what} takes W (Dj*3 = {_MATVEC_ROWS} rows, N, "
-                         f"Pmax), got shape {tuple(W.shape)}")
+    fault = _pose_shape_fault(W, x, free_pose)
+    if fault is not None:
+        raise ValueError(f"{what}: {fault}")
     _, N, P = W.shape
     if W.stride(2) != 1 or W.stride(1) != P or W.stride(0) < N * P:
         raise ValueError(f"{what}: W's (N, Pmax) planes must be contiguous "
                          f"(strides (>= N*Pmax, Pmax, 1)), got strides "
                          f"{W.stride()}")
-    if N * P > _INT32_MAX:
-        raise ValueError(f"{what}: at most 2^31 - 1 slots, got N={N}, "
-                         f"Pmax={P}")
-    D = x.shape[-1] if x.dim() == 2 else -1
-    if x.dim() != 2 or x.shape[0] != N or D < _MATVEC_ROWS // 3:
-        raise ValueError(f"{what}: x must be (N={N}, D >= "
-                         f"{_MATVEC_ROWS // 3}), got {tuple(x.shape)}")
-    if tuple(free_pose.shape) not in ((N,), (N, D)):
-        raise ValueError(f"{what}: free_pose must be ({N},) or ({N}, {D}), "
-                         f"got {tuple(free_pose.shape)}")
     _check_f32(what, (("x", x), ("free_pose", free_pose)), W.device)
+    D = x.shape[1]
     return N, P, D, 0 if free_pose.dim() == 1 else D
 
 
+@counts_launches
 def matvec_wt_slots(W: torch.Tensor, x: torch.Tensor,
                     free_pose: torch.Tensor) -> torch.Tensor:
     """``W^T x`` per slot, the projection folded in: ``W`` (18, N, Pmax)
@@ -677,12 +635,13 @@ def matvec_wt_slots(W: torch.Tensor, x: torch.Tensor,
     t = torch.empty((3, N * P), dtype=W.dtype, device=W.device)
     if N * P == 0:
         return t
-    _launch(_matvec_library, "matvec_wt_slots_f32", W, W.stride(0), x,
-            free_pose, free_cols, t, N, P, D)
+    _build.launch(_MATVEC_LIB, "matvec_wt_slots_f32", W, W.stride(0), x,
+                  free_pose, free_cols, t, N, P, D)
     matvec_wt_slots.launches += 1
     return t
 
 
+@counts_launches
 def matvec_landmark_step(hinv: torch.Tensor,
                          utx: torch.Tensor) -> torch.Tensor:
     """The ``Hll^-1`` step: ``hinv`` (6, M) symmetric components of the
@@ -711,11 +670,12 @@ def matvec_landmark_step(hinv: torch.Tensor,
     y = torch.empty((3, M), dtype=hinv.dtype, device=hinv.device)
     if M == 0:
         return y
-    _launch(_matvec_library, "matvec_landmark_step_f32", hinv, utx, y, M)
+    _build.launch(_MATVEC_LIB, "matvec_landmark_step_f32", hinv, utx, y, M)
     matvec_landmark_step.launches += 1
     return y
 
 
+@counts_launches
 def matvec_pose_side(W: torch.Tensor, lm_idx: torch.Tensor, y: torch.Tensor,
                      Hpp: torch.Tensor, x: torch.Tensor,
                      free_pose: torch.Tensor) -> torch.Tensor:
@@ -757,16 +717,10 @@ def matvec_pose_side(W: torch.Tensor, lm_idx: torch.Tensor, y: torch.Tensor,
     out = torch.empty((N, D), dtype=W.dtype, device=W.device)
     if N == 0:
         return out
-    _launch(_matvec_library, "matvec_pose_side_f32", W, W.stride(0), lm_idx,
-            y, M, Hpp, x, free_pose, free_cols, out, N, P, D)
+    _build.launch(_MATVEC_LIB, "matvec_pose_side_f32", W, W.stride(0),
+                  lm_idx, y, M, Hpp, x, free_pose, free_cols, out, N, P, D)
     matvec_pose_side.launches += 1
     return out
-
-
-# Kernel launches since the counts were last reset (CPU paths add nothing).
-matvec_wt_slots.launches = 0
-matvec_landmark_step.launches = 0
-matvec_pose_side.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -808,21 +762,10 @@ def pcg_trip_reference(P, free_pose, x, r, p, Sp, rz, rr, thresh_sq, it):
     return x, r, z, p, rz, rr, it
 
 
-@functools.cache
-def _pcg_library() -> tuple[ctypes.CDLL, str]:
-    lib, log = _build.load("schur_pcg", _PCG_SOURCES)
-    p, i = ctypes.c_void_p, ctypes.c_int
-    lib.pcg_trip_f32.argtypes = [p] * 7 + [i, p, p, i, i, i, p]
-    lib.pcg_trip_f32.restype = ctypes.c_int
-    lib.pcg_trip_scratch_floats.argtypes = [i, i]
-    lib.pcg_trip_scratch_floats.restype = ctypes.c_longlong
-    return lib, log
-
-
-def build_pcg() -> str:
-    """Build (or reuse) and load the CG trip library; returns the
-    compiler's ``-Xptxas -v`` report."""
-    return _pcg_library()[1]
+_PCG_LIB = _build.library("schur_pcg", ("schur_pcg.cu",), {
+    "pcg_trip_f32": dict(argtypes=[_P] * 7 + [_I, _P, _P, _I, _I, _I, _P],
+                         restype=_I),
+    "pcg_trip_scratch_floats": dict(argtypes=[_I, _I], restype=_LL)})
 
 
 def _pcg_shape_fault(x, P, free_pose):
@@ -876,6 +819,7 @@ def _check_pcg_inputs(P, free_pose, vectors, state):
     return N, D, 0 if free_pose.dim() == 1 else D
 
 
+@counts_launches
 def pcg_trip(P: torch.Tensor, free_pose: torch.Tensor, x: torch.Tensor,
              r: torch.Tensor, z: torch.Tensor, p: torch.Tensor,
              state: torch.Tensor):
@@ -916,7 +860,7 @@ def pcg_trip(P: torch.Tensor, free_pose: torch.Tensor, x: torch.Tensor,
     owned = frozenset(t.data_ptr() for _, t in vectors)
     if len(owned) != len(vectors):
         raise ValueError("pcg_trip: x, r, z and p must be distinct buffers")
-    lib, _ = _pcg_library()
+    lib, _ = _build.load(_PCG_LIB)
     fn = lib.pcg_trip_f32
     scratch = torch.empty(lib.pcg_trip_scratch_floats(N, D),
                           dtype=torch.float32, device=x.device)
@@ -942,8 +886,3 @@ def pcg_trip(P: torch.Tensor, free_pose: torch.Tensor, x: torch.Tensor,
 
     trip.buffers = bufs  # alive while the kernel may use them
     return trip
-
-
-# Trips launched since the count was last reset (the CPU path adds
-# nothing).
-pcg_trip.launches = 0

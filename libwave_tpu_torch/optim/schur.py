@@ -637,14 +637,14 @@ def _add_couplings(blocks: SchurBlocks, out, x):
 
 def _takes_fused_matvec(blocks: SchurBlocks, x) -> bool:
     """Whether :func:`schur_matvec` runs as the four kernels of
-    :func:`_fused_matvec`: unsharded pose-ELL blocks on the card, float32,
-    whose W touches 6 pose coordinates (18 rows). Elsewhere (the CPU, the
-    flat layout, sharded blocks, f64 or widened pose sums) it runs the
-    composition of PyTorch operations."""
-    return (blocks.W.is_cuda and blocks.ell is not None
-            and blocks.axis_name is None and blocks.W.shape[0] == 18
-            and all(t.dtype == torch.float32 for t in (
-                blocks.W, blocks.Hpp, blocks.Hll_inv, blocks.free_pose, x)))
+    :func:`_fused_matvec`: unsharded pose-ELL blocks whose operands
+    ``ops.segmm.takes_matvec`` accepts (on the card, float32, W touching 6
+    pose coordinates: 18 rows). Elsewhere (the CPU, the flat layout, sharded
+    blocks, f64 or widened pose sums) it runs the composition of PyTorch
+    operations."""
+    return (blocks.ell is not None and blocks.axis_name is None
+            and segmm.takes_matvec(blocks.W, x, blocks.free_pose,
+                                   blocks.Hpp, blocks.Hll_inv))
 
 
 def _fused_matvec(blocks: SchurBlocks, x: torch.Tensor) -> torch.Tensor:

@@ -8,8 +8,9 @@ operator's profiler export.
   also enters a ``torch.profiler.record_function`` range of the same name,
   so the span shows in the profiler's events and Chrome export.
 - :func:`count` adds to a named host counter of the active recording. A
-  recording also reads the launch counts that the kernel wrappers of
-  ``ops.segmm`` keep, and holds their deltas as ``launches.<wrapper>``.
+  recording also reads the launch counts that the kernel wrappers
+  registered with :func:`counts_launches` keep, and holds their deltas as
+  ``launches.<wrapper>``.
 - :func:`profile_trace` records a ``torch.profiler`` trace (CPU and, when
   a card is present, CUDA activity) and writes it under ``log_dir`` as a
   Chrome trace (``trace.json``) readable in Perfetto or TensorBoard.
@@ -36,12 +37,10 @@ import torch.autograd.profiler as _autograd_profiler
 # Spans named so are solves: each record carries the number of the
 # outermost solve span around it (or itself), one per solve.
 SOLVE_SPAN = "ba.solve"
-# The kernel wrappers of ``ops.segmm`` whose ``launches`` a recording reads.
-LAUNCH_COUNTED = ("seg_reduce_sorted", "seg_broadcast", "dense_g_a_window",
-                  "matvec_wt_slots", "matvec_landmark_step",
-                  "matvec_pose_side", "pcg_trip")
 
 _recording = None  # the active Recording, or None
+# the kernel wrappers whose ``launches`` a recording reads, by name
+_wrappers = {}
 
 
 @dataclass(slots=True)
@@ -84,10 +83,23 @@ def _profiler_clock_offset() -> int:
     return best[1]
 
 
-def _launch_counts() -> dict:
-    from libwave_tpu_torch.ops import segmm
+def counts_launches(fn):
+    """Register ``fn``, a kernel wrapper that adds each launch to its
+    ``launches`` attribute: set it to 0 and return ``fn`` itself, not a
+    wrapper of it, so that what watches ``fn.__code__`` still sees its
+    calls."""
+    fn.launches = 0
+    _wrappers[fn.__name__] = fn
+    return fn
 
-    return {w: getattr(segmm, w).launches for w in LAUNCH_COUNTED}
+
+def counted_wrappers() -> dict:
+    """The wrappers registered with :func:`counts_launches`, by name."""
+    return dict(_wrappers)
+
+
+def _launch_counts() -> dict:
+    return {w: fn.launches for w, fn in _wrappers.items()}
 
 
 @contextlib.contextmanager
@@ -105,8 +117,9 @@ def recording():
         yield rec
     finally:
         _recording = None
+        # a wrapper registered during the recording counts from 0
         for w, n in _launch_counts().items():
-            rec.counters[f"launches.{w}"] += n - before[w]
+            rec.counters[f"launches.{w}"] += n - before.get(w, 0)
 
 
 class _Span:

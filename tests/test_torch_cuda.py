@@ -66,7 +66,7 @@ import pytest
 import torch
 
 from libwave_tpu_torch import bench_frontend, bench_problem
-from libwave_tpu_torch.ops import hamming, segmm
+from libwave_tpu_torch.ops import _build, hamming, segmm
 from libwave_tpu_torch.optim import ba, schur
 from libwave_tpu_torch.pipelines import vio, visual_frontend
 from libwave_tpu_torch.sim import vo_dataset
@@ -631,11 +631,11 @@ def test_pcg_trip_raises_on_the_card(cuda_device):
                 a["Sp"].cpu(), p):
         with pytest.raises(ValueError, match="Sp must be"):
             trip(bad)
-    lib, log = segmm._pcg_library()
+    lib, log = _build.load(segmm._PCG_LIB)
     fake = mock.Mock(pcg_trip_f32=mock.Mock(return_value=9),
                      pcg_trip_scratch_floats=lib.pcg_trip_scratch_floats)
     before = segmm.pcg_trip.launches
-    with mock.patch.object(segmm, "_pcg_library", return_value=(fake, log)):
+    with mock.patch.object(_build, "load", return_value=(fake, log)):
         trip = segmm.pcg_trip(a["P"], a["free"], x, r, z, p, state)
     with pytest.raises(RuntimeError, match="CUDA error 9"):
         trip(a["Sp"])

@@ -44,9 +44,9 @@ for new in ("ops.hamming", "vision.matcher", "vision.tracker",
             "bench_frontend", "sim.render", "utils.config", "ops.segmm",
             "geometry.se3", "benchmark.trajectory", "optim.imu",
             "kinematics.two_wheel", "vision.camera", "sim.vo_dataset",
-            "pipelines.vio", "utils.device", "launch_count",
-            "datasets.euroc", "sim.euroc_sim", "optim.marginalization",
-            "pipelines.euroc_vio", "bench_designs", "utils.checkpoint",
+            "pipelines.vio", "utils.device", "datasets.euroc",
+            "sim.euroc_sim", "optim.marginalization", "pipelines.euroc_vio",
+            "utils.checkpoint",
             "pipelines.windowed_vio", "pipelines.windowed_ba",
             "bench_windowed", "geometry.euler", "native", "matching",
             "matching.pointcloud", "matching.knn", "matching.loop",
@@ -127,7 +127,7 @@ def test_port_and_chip_smoke_import_without_jax():
     # solvers', the lidar path's, the pixels path's and the trajectory
     # back end's and leaves' modules, the distributed layer and the last
     # utilities
-    assert count >= 100
+    assert count >= 97
 
 
 def test_chip_smoke_fails_without_cuda():

@@ -534,7 +534,7 @@ def test_matvec_dispatch(case, lin, rng):
     with card, trace.recording() as rec:
         got = ts.schur_matvec(bt, x)
     assert rec.counters["schur.matvec_fused"] == (case == "card_ell")
-    for w in trace.LAUNCH_COUNTED:
+    for w in trace.counted_wrappers():
         assert rec.counters[f"launches.{w}"] == 0
     assert torch.equal(got, ts.schur_matvec(bt, x))
 

@@ -9,6 +9,7 @@ import pytest
 import torch
 
 from libwave_tpu_torch import bench_problem
+from libwave_tpu_torch.ops import hamming, segmm
 from libwave_tpu_torch.optim import ba
 from libwave_tpu_torch.utils import trace
 
@@ -78,10 +79,19 @@ def test_counters_count_iterations_and_cg_trips():
         ba.solve_ba(problem, state, CFG)
     assert rec.counters["ba.lm_iterations"] == ITERATIONS
     assert rec.counters["schur.cg_trips"] == ITERATIONS * CG
-    # the kernels do not run on the CPU: their launch counts are read, and
-    # nothing launched
-    for w in trace.LAUNCH_COUNTED:
-        assert rec.counters[f"launches.{w}"] == 0
+    # every kernel wrapper of ``ops`` is registered as the module's own
+    # function (what watches its ``__code__`` sees its calls), and the
+    # recording reads each one's launch count: the kernels do not run on
+    # the CPU, so nothing launched
+    wrappers = trace.counted_wrappers()
+    own = {name: fn for mod in (segmm, hamming)
+           for name, fn in vars(mod).items()
+           if callable(fn) and hasattr(fn, "launches")}
+    assert own.keys() == wrappers.keys()
+    for name, fn in own.items():
+        assert wrappers[name] is fn
+        assert f"launches.{name}" in rec.counters
+        assert rec.counters[f"launches.{name}"] == 0
 
 
 def test_nothing_is_recorded_outside_a_recording():
