@@ -11,7 +11,8 @@ it imports no JAX. Phases, each reported on its own line:
    device is a failure, never a CPU run;
 2. build: compiles every library of ``ops/_build.LIBRARIES``
    (``libwave_tpu_torch/csrc/segmm_g_a.cu``, ``segmm_seg.cu``,
-   ``schur_matvec.cu``, ``schur_pcg.cu`` and ``hamming.cu``) for sm_90a,
+   ``schur_matvec.cu``, ``schur_pcg.cu``, ``schur_precond.cu`` and
+   ``hamming.cu``) for sm_90a,
    one nvcc each, started together, and loads them;
 3. kernel: the G/A kernel through its window entry point
    (``dense_g_a_window``: the full W, the landmark-sorted layout and Hinv,
@@ -55,9 +56,11 @@ it imports no JAX. Phases, each reported on its own line:
    same function (``index_add_`` into zeros; ``index_select`` on y padded
    with a zero column), each timed as device time;
 6. matrix_free: the 10-iteration headline solve with
-   ``explicit_s="never"`` (matrix-free PCG): exactly 23 reduces and 2
-   broadcasts per LM iteration (3 + 20 CG steps; schur_rhs and the
-   preconditioner) and 20 launches of each matvec kernel (W^T x, the
+   ``explicit_s="never"`` (matrix-free PCG): exactly 23 reduces, 1
+   broadcast (schur_rhs's) and 1 launch of the preconditioner's self-blocks
+   kernel per LM iteration (3 + 20 CG steps; every preconditioner through
+   the kernel: ``schur.precond_fused`` over the LM iterations) and 20
+   launches of each matvec kernel (W^T x, the
    Hll^-1 step, the pose side: each CG step's matvec is those and a
    reduce), every matvec on that fused path (the ``schur.matvec_fused``
    counter over ``schur.cg_trips``) and every CG trip through the trip
@@ -81,9 +84,14 @@ it imports no JAX. Phases, each reported on its own line:
    and 13,682, D = 6 and 15; ``bench_problem.PCG_TRIP_CASES``) held to its
    plain version (within 1e-5 of each output's magnitude, a frozen trip
    bit for bit, two runs bit-identical) and timed at D = 6 beside its
-   bound and the eager loop body's time; the headline solve from six
-   seeds through the fused matvec and trip, the plain matvec, the plain
-   CG loop and the CPU in f32, each held to the CPU's f64 solve (the
+   bound and the eager loop body's time; the preconditioner's self-blocks
+   kernel on venice-mf's whole shape (random operands, strided W) and on a
+   sequential capture's ids at final-13682-mf's shape (``bench_problem.
+   FINAL_CELL``) held to its plain version (within 1e-5 of its terms'
+   magnitudes, both triangles equal, two runs bit-identical) and timed
+   beside its bound and the plain composition it replaced; the headline
+   solve from six seeds through the fused matvec, self-blocks and trip,
+   the plain matvec and self-blocks, the plain CG loop and the CPU in f32, each held to the CPU's f64 solve (the
    fused solve's and the plain CG loop's median distances each within 2x
    the larger of the plain matvec's and the CPU f32 solve's); and
    ``bench_problem.matvec_profile`` (matvec ms at 300 to 2,400 observations
@@ -482,6 +490,10 @@ PCG_SOURCE = "libwave_tpu_torch/csrc/schur_pcg.cu"
 # nor does the CG trip: the JAX package runs pcg's loop body as one XLA
 # fusion inside lax.scan (libwave_tpu/optim/schur.py:1089)
 PCG_REPLACES = None
+PRECOND_SOURCE = "libwave_tpu_torch/csrc/schur_precond.cu"
+# nor does the preconditioner's self-blocks kernel: the JAX package's
+# _schur_self_blocks (libwave_tpu/optim/schur.py:689) is one XLA fusion
+PRECOND_REPLACES = None
 REDUCE_REPLACES = "libwave_tpu/ops/segmm.py:65"
 BROADCAST_REPLACES = "libwave_tpu/ops/segmm.py:117"
 # the H100 SXM's published HBM rate and non-tensor f32 rate (NVIDIA's data
@@ -956,7 +968,8 @@ def phase_headline(problem, state, cfg, smi):
     want = dict(dense_g_a_window=BAND_CALLS * LM_ITERS,
                 seg_reduce_sorted=3 * LM_ITERS, seg_broadcast=LM_ITERS,
                 hamming_top2=0, hamming_distance=0,
-                pcg_trip=cg_trips(cfg, state.p.dtype) * LM_ITERS)
+                pcg_trip=cg_trips(cfg, state.p.dtype) * LM_ITERS,
+                schur_self_blocks=0)
     check(counts == want, f"headline: launches {counts} in {LM_ITERS} LM "
           f"iterations, expected {want}")
     launches_ga = counts["dense_g_a_window"]
@@ -1295,12 +1308,12 @@ def phase_matrix_free(problem, state, smi):
     check(not syncs, f"matrix_free: synchronizing calls inside solve_ba: "
           f"{dict(syncs)}")
     # per LM iteration: reduces of Hll, bl and back-substitution plus one
-    # per CG matvec; broadcasts of schur_rhs and the preconditioner's self
-    # blocks; each CG matvec also W^T x, the Hll^-1 step and the pose side
-    # (which gathers y itself)
+    # per CG matvec; the broadcast of schur_rhs; the preconditioner's
+    # self-blocks kernel (which gathers Hll^-1 itself); each CG matvec also
+    # W^T x, the Hll^-1 step and the pose side (which gathers y itself)
     want = dict(dense_g_a_window=0, seg_reduce_sorted=(3 + cg) * LM_ITERS,
-                seg_broadcast=2 * LM_ITERS, hamming_top2=0, hamming_distance=0,
-                pcg_trip=cg * LM_ITERS)
+                seg_broadcast=LM_ITERS, hamming_top2=0, hamming_distance=0,
+                pcg_trip=cg * LM_ITERS, schur_self_blocks=LM_ITERS)
     check(counts == want, f"matrix_free: launches {counts}, expected {want}")
     want = dict.fromkeys(matvec_launches(), cg * LM_ITERS)
     check(mv_counts == want, f"matrix_free: matvec launches {mv_counts}, "
@@ -1314,6 +1327,10 @@ def phase_matrix_free(problem, state, smi):
     check(cg_fused == trips == pcg_calls,
           f"matrix_free: {cg_fused} of {trips} CG trips fused, "
           f"{pcg_calls} trip kernel calls")
+    precond = rec.counters["schur.precond_fused"]
+    check(precond == rec.counters["ba.lm_iterations"] == LM_ITERS,
+          f"matrix_free: {precond} preconditioners through the self-blocks "
+          f"kernel in {rec.counters['ba.lm_iterations']} LM iterations")
     c0 = float(info["initial_cost"])
     costs = info["costs"].cpu().numpy().astype(np.float64)
     check(np.isfinite(c0) and np.isfinite(costs).all() and costs[-1] < c0,
@@ -1328,8 +1345,10 @@ def phase_matrix_free(problem, state, smi):
     print(f"matrix_free: explicit_s='never', "
           f"{counts['seg_reduce_sorted']} reduce and "
           f"{counts['seg_broadcast']} broadcast launches in {LM_ITERS} "
-          f"LM iterations ({3 + cg} and 2 per iteration at {cg} CG "
+          f"LM iterations ({3 + cg} and 1 per iteration at {cg} CG "
           f"steps, as worked out from the code), "
+          f"{counts['schur_self_blocks']} self-blocks launches (the "
+          f"preconditioner's, {precond} counted), "
           + ", ".join(f"{v} {k}" for k, v in mv_counts.items())
           + f" launches ({cg} per iteration each); the fused path took "
           f"{fused} of {trips} matvecs ({100.0 * fused / trips:.1f}%), the "
@@ -1362,6 +1381,7 @@ def phase_matrix_free(problem, state, smi):
     del blocks, x
     mv_stats = _matvec_cell(smi)
     mv_stats["pcg_trip"] = _pcg_trip_cells(smi)
+    mv_stats["schur_self_blocks"] = _self_blocks_cells(smi)
     _solve_witness(cfg, problem.uv.device, smi)
     rates = {"kernel": [], "plain": []}
     final = {}
@@ -1482,14 +1502,61 @@ def _pcg_trip_cells(smi):
     return stats
 
 
+def _self_blocks_cells(smi):
+    """The preconditioner's self-blocks kernel on random operands of
+    venice-mf's whole shape (``bench_problem.MATVEC_CELL``: strided W, ids
+    outside [0, M), a padding pose) and on a sequential capture's ids at
+    final-13682-mf's (``bench_problem.FINAL_CELL``, 8% padding), each held
+    to its plain version (within 1e-5 of the sum of its terms' magnitudes,
+    both triangles equal, two runs bit-identical), then timed beside its
+    bound and the plain composition it replaced (the broadcast kernel and
+    eager PyTorch). Returns the venice-mf shape's entry stats for the
+    ``kernels`` line."""
+    rows, stats = [], None
+    for name, (N, P, M), strided, sequential in (
+            ("venice-mf", bench_problem.MATVEC_CELL[:3], True, False),
+            ("final-13682-mf", bench_problem.FINAL_CELL, False, True)):
+        a = bench_problem.self_blocks_operands(
+            N, P, M, strided, sequential, device=torch.device("cuda:0"))
+        err = bench_problem.self_blocks_errors(a)
+        check(err["same_bits"] and err["symmetric"] and err["rel"] <= 1e-5,
+              f"matrix_free: the self-blocks kernel at {name}'s shape "
+              f"against its plain version: {err}")
+        t = bench_problem.self_blocks_times(a)
+        # each rounded operation is an instruction of its own (no FMA):
+        # half the rate that counts an FMA as two
+        bound_ms, bound_by = bound(t["bytes"], t["ops"], ALU_OPS_PER_S / 2)
+        rows.append(f"{name} (N {N}, Pmax {P}, M {M}, "
+                    f"{'sequential' if sequential else 'random'} ids): "
+                    f"{t['ms']:.4f} (bound {bound_ms:.4f} by {bound_by}, "
+                    f"{t['bytes'] / 1e6:.3f} MB, {t['ops'] / 1e9:.3f} G "
+                    f"operations; with Hll^-1 counted at every slot "
+                    f"{bound(t['slot_bytes'])[0]:.4f}; plain "
+                    f"{t['plain_ms']:.4f}; within {err['rel']:.3e} of its "
+                    f"terms' magnitudes)")
+        if stats is None:
+            stats = dict(max_abs_err=err["max_abs_err"], ms=t["ms"],
+                         plain_ms=t["plain_ms"], bound_ms=bound_ms,
+                         bound_by=bound_by, library_ms=None)
+        del a
+        torch.cuda.empty_cache()
+    print(f"matrix_free: the preconditioner's self-blocks kernel held to its "
+          f"plain version (within 1e-5 of its terms' magnitudes, both "
+          f"triangles equal, two runs bit-identical); device ms a call beside "
+          f"the bound and the plain composition's: " + "; ".join(rows)
+          + f" | {smi}")
+    return stats
+
+
 # seeds of the headline problem the fused matrix-free solve is witnessed on
 WITNESS_SEEDS = (0, 1, 2, 3, 4, 5)
 
 
 def _solve_witness(cfg, dev, smi):
     """The matrix-free headline solve (``cfg``) from each of WITNESS_SEEDS
-    five ways: on the card through the fused matvec and CG trip, through
-    the plain matvec and through the plain CG loop, on the CPU in f32 and,
+    five ways: on the card through the fused matvec, self-blocks and CG
+    trip, through the plain matvec and self-blocks and through the plain CG
+    loop, on the CPU in f32 and,
     the witness, in f64. Each f32 solve's
     distance from the witness: the final state's RMS position difference
     (poses and landmarks, m), the final cost's excess (at the f32 floor,
@@ -1501,10 +1568,12 @@ def _solve_witness(cfg, dev, smi):
     and the plain CG loop's, must each be within 2x the larger of the
     plain matvec's and the CPU f32 solve's medians: f32 rounding, amplified
     by inexact CG steps, parts the f32 solves from the witness; a defect
-    of the fused matvec or CG trip would part it further."""
+    of the fused matvec, self-blocks or CG trip would part it further."""
     cpu = torch.device("cpu")
     names = ("fused", "plain", "plain_cg", "cpu_f32")
-    plain = {"plain": "_takes_fused_matvec", "plain_cg": "_takes_fused_cg"}
+    plain = {"plain": ((schur, "_takes_fused_matvec"),
+                       (segmm, "takes_self_blocks")),
+             "plain_cg": ((schur, "_takes_fused_cg"),)}
     rows = {k: [] for k in names}
     for seed in WITNESS_SEEDS:
         problem, state = bench_problem.make_problem(seed=seed, device=dev)
@@ -1520,8 +1589,10 @@ def _solve_witness(cfg, dev, smi):
         for name in names:
             pr, st = ((to_device(problem, cpu), to_device(state, cpu))
                       if name == "cpu_f32" else (problem, state))
-            with (mock.patch.object(schur, plain[name], return_value=False)
-                  if name in plain else contextlib.nullcontext()):
+            with contextlib.ExitStack() as stack:
+                for mod, attr in plain.get(name, ()):
+                    stack.enter_context(mock.patch.object(
+                        mod, attr, return_value=False))
                 out, info = ba.solve_ba(pr, st, cfg)
                 lam = torch.tensor(cfg.init_lambda, device=st.p.device)
                 with precision.full_f32():
@@ -1578,6 +1649,7 @@ def _solve_counted(what, fn, iters, want_per_iter):
     check(not stray, f"{what}: synchronizing calls outside torch.linalg: "
           f"{ {k: syncs[k] for k in stray} }")
     want = {"hamming_top2": 0, "hamming_distance": 0, "pcg_trip": 0,
+            "schur_self_blocks": 0,
             **{k: v * iters for k, v in want_per_iter.items()}}
     check(counts == want, f"{what}: launches {counts}, expected {want}")
     return out, counts
@@ -1884,16 +1956,19 @@ def phase_vio(dev, smi):
     # per LM iteration, dense: reduces of Hll, bl and back-substitution,
     # schur_rhs's broadcast, one G/A build; PCG: as the matrix-free BA
     # path, with cg_max_iters matvecs on the fused path and as many CG
-    # trip kernel calls (D = 15)
+    # trip kernel calls (D = 15), and the preconditioner's self-blocks
+    # kernel (f32)
     trips = cg_trips(bench_problem.vio_config("pcg"), init.p.dtype)
+    fused = int(init.p.dtype == torch.float32)
     wants = {
         "auto": (dict(dense_g_a_window=it, seg_reduce_sorted=3 * it,
                       seg_broadcast=it, hamming_top2=0, hamming_distance=0,
-                      pcg_trip=0),
+                      pcg_trip=0, schur_self_blocks=0),
                  dict.fromkeys(matvec_launches(), 0)),
         "pcg": (dict(dense_g_a_window=0, seg_reduce_sorted=(3 + cg) * it,
-                     seg_broadcast=2 * it, hamming_top2=0, hamming_distance=0,
-                     pcg_trip=trips * it),
+                     seg_broadcast=(2 - fused) * it, hamming_top2=0,
+                     hamming_distance=0, pcg_trip=trips * it,
+                     schur_self_blocks=fused * it),
                 dict.fromkeys(matvec_launches(), cg * it)),
     }
     cpu = torch.device("cpu")
@@ -1930,7 +2005,8 @@ def phase_vio(dev, smi):
                            for k, v in sorted(syncs.items())) or "none"
         print(f"vio {solver}: {counts['dense_g_a_window']} G/A, "
               f"{counts['seg_reduce_sorted']} reduce and "
-              f"{counts['seg_broadcast']} broadcast launches, "
+              f"{counts['seg_broadcast']} broadcast and "
+              f"{counts['schur_self_blocks']} self-blocks launches, "
               f"{mv_counts['matvec_pose_side']} of each "
               f"matvec kernel, {counts['pcg_trip']} CG trip kernel calls "
               f"in {it} LM iterations (as worked out from "
@@ -1976,7 +2052,7 @@ def phase_euroc(dev, smi):
         # bl and back-substitution, schur_rhs's broadcast
         want = dict(dense_g_a_window=it, seg_reduce_sorted=3 * it,
                     seg_broadcast=it, hamming_top2=0, hamming_distance=0,
-                    pcg_trip=0)
+                    pcg_trip=0, schur_self_blocks=0)
         reset_launches()
         (state, info), syncs = _sync_free(
             lambda: vio.solve_vio(problem, init, cfg))
@@ -2061,7 +2137,8 @@ def _windowed_launches(iters, n_marg, trips_per_iter=0):
     return dict(dense_g_a_window=iters + n_marg,
                 seg_reduce_sorted=3 * iters + 2 * n_marg,
                 seg_broadcast=iters + n_marg, hamming_top2=0,
-                hamming_distance=0, pcg_trip=trips_per_iter * iters)
+                hamming_distance=0, pcg_trip=trips_per_iter * iters,
+                schur_self_blocks=0)
 
 
 def _solver_checked(what, fn, n_marg_of, sync_debug=True, trips_per_iter=0):
@@ -3057,7 +3134,7 @@ def phase_pixels(dev, smi):
               "pixels: the decoded PNGs differ from the rendered frames")
         want = dict(dense_g_a_window=it, seg_reduce_sorted=3 * it,
                     seg_broadcast=it, hamming_top2=T, hamming_distance=0,
-                    pcg_trip=0)
+                    pcg_trip=0, schur_self_blocks=0)
         reset_launches()
         _, rep = euroc_vio.run_euroc_vio_from_images(
             root, params, K=K, generator=_gen(dev, 0), device=dev)
@@ -3235,7 +3312,8 @@ def phase_orb(frames, dev, smi, popc_rate):
     tracks, dt = run(plain=False)
     counts = launch_counts()
     want = dict(dense_g_a_window=0, seg_reduce_sorted=0, seg_broadcast=0,
-                hamming_top2=len(frames), hamming_distance=0, pcg_trip=0)
+                hamming_top2=len(frames), hamming_distance=0, pcg_trip=0,
+                schur_self_blocks=0)
     check(counts == want, f"orb: launches {counts}, expected {want}")
     tracks_p, dt_p = run(plain=True)
     check(np.array_equal(tracks, tracks_p), "orb: tracks with the top-2 "
@@ -3460,7 +3538,8 @@ def phase_batched(frames, dev, smi):
         generators=[_gen(dev, b) for b in range(BATCH)]))
     counts = launch_counts()
     want = dict(dense_g_a_window=0, seg_reduce_sorted=0, seg_broadcast=0,
-                hamming_top2=BATCH * T, hamming_distance=0, pcg_trip=0)
+                hamming_top2=BATCH * T, hamming_distance=0, pcg_trip=0,
+                schur_self_blocks=0)
     check(counts == want, f"batched: launches {counts}, expected {want}")
     singles = []
     for b in range(BATCH):
@@ -4351,7 +4430,8 @@ def _check_dist_ba(outs, world, refs, smi):
     # the trip kernel
     want = dict(dense_g_a_window=0, seg_reduce_sorted=(3 + cg) * LM_ITERS,
                 seg_broadcast=(2 + cg) * LM_ITERS, hamming_top2=0,
-                hamming_distance=0, pcg_trip=cg * LM_ITERS)
+                hamming_distance=0, pcg_trip=cg * LM_ITERS,
+                schur_self_blocks=0)
     for r, o in enumerate(outs):
         check(o["ba_counts"] == want, f"dist_ba {world}: rank {r} launched "
               f"{o['ba_counts']}, expected {want}")
@@ -4438,7 +4518,7 @@ def _check_group2(outs, smi):
     it, cg = cfg.max_iterations, cfg.cg_max_iters
     want = dict(dense_g_a_window=0, seg_reduce_sorted=(3 + cg) * it,
                 seg_broadcast=(2 + cg) * it, hamming_top2=0,
-                hamming_distance=0, pcg_trip=cg * it)
+                hamming_distance=0, pcg_trip=cg * it, schur_self_blocks=0)
     for r, o in enumerate(outs):
         check(o["vio_counts"] == want, f"dist_vio: rank {r} launched "
               f"{o['vio_counts']}, expected {want}")
@@ -4787,9 +4867,12 @@ def main():
         _kernel_entry("hamming_table", HAMMING_SOURCE, TABLE_REPLACES,
                       table_launches, ham["table"]),
         *(_kernel_entry(k, MATVEC_SOURCE, MATVEC_REPLACES, mf_counts[k], v)
-          for k, v in mv_stats.items() if k != "pcg_trip"),
+          for k, v in mv_stats.items() if _is_matvec(k)),
         _kernel_entry("pcg_trip", PCG_SOURCE, PCG_REPLACES,
                       mf_counts["pcg_trip"], mv_stats["pcg_trip"]),
+        _kernel_entry("schur_self_blocks", PRECOND_SOURCE, PRECOND_REPLACES,
+                      mf_counts["schur_self_blocks"],
+                      mv_stats["schur_self_blocks"]),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count(),

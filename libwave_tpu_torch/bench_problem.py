@@ -665,6 +665,100 @@ def matvec_operand_blocks(a: dict):
     return blocks, x
 
 
+# final-13682-mf's bank: 13,682 poses, Pmax 2,302 (31,495,964 slots),
+# 4,456,117 landmarks
+FINAL_CELL = (13682, 2302, 4_456_117)
+# (N, Pmax, M, W a strided window view, sequential ids) of the self-blocks
+# kernel's checks: the matvec kernels' shapes (both of its block widths,
+# Pmax up to 512 and above), a sequential capture's ids at Final's Pmax,
+# and venice-mf's whole shape
+SELF_BLOCKS_CASES = [(N, P, M, strided, False)
+                     for N, P, M, _, _, strided in MATVEC_CASES] + [
+    (200, 2302, 65_000, False, True),
+    (*MATVEC_CELL[:3], True, False),
+]
+
+
+def sequential_ids(N, P, M, device=None, padding=0.08) -> torch.Tensor:
+    """(N*P,) int32 slot ids of a sequential capture, drawn on ``device``
+    from a generator seeded by the shape: pose n sees, in ascending order,
+    ids drawn from the 48 M / N landmarks whose tracks start at the 48
+    cameras up to n (portbench's scene: tracks of at most 48 consecutive
+    cameras, ids ordered by their first camera), and its last ``padding``
+    share of slots is padding (-1; final-13682-mf's bank pads 7.96%)."""
+    device = resolve(device)
+    g = torch.Generator(device=device).manual_seed(N * P + M)
+    span = max(min(48, N) * M // N, 1)
+    start = torch.arange(N, dtype=torch.int64, device=device) * M // N - span
+    draws = torch.randint(0, span, (N, P), generator=g,
+                          device=device).sort(dim=1).values
+    ids = ((start[:, None] + draws) % M).to(torch.int32)
+    ids[:, int(P * (1.0 - padding)):] = -1
+    return ids.reshape(-1)
+
+
+def self_blocks_operands(N, P, M, strided, sequential=False,
+                         device=None) -> dict:
+    """Operands of the self-blocks kernel: :func:`matvec_operands` at D = 6
+    (W, ids, hinv among them; ids uniform in [-3, M + 3) with the first
+    pose all padding), or with ``sequential`` the ids of
+    :func:`sequential_ids`."""
+    a = matvec_operands(N, P, M, 6, False, strided, device=device)
+    if sequential:
+        a["ids"] = sequential_ids(N, P, M, device=a["W"].device)
+    return a
+
+
+def self_blocks_errors(a: dict) -> dict:
+    """``ops.segmm.schur_self_blocks`` on :func:`self_blocks_operands`
+    ``a``, run twice and held to ``schur_self_blocks_reference``: ``rel``,
+    its largest error as a share of the sum of its terms' magnitudes (the
+    plain version of |W|, |Hll^-1| in f64, which bounds the rounding of
+    any order of the sums), ``max_abs_err``, ``same_bits`` (the two runs
+    agree) and ``symmetric`` (both triangles equal bit for bit)."""
+    W, ids, hinv = a["W"], a["ids"], a["hinv"]
+    runs = [segmm.schur_self_blocks(W, ids, hinv) for _ in range(2)]
+    ref = segmm.schur_self_blocks_reference(W, ids, hinv)
+    scale = segmm.schur_self_blocks_reference(W.abs().double(), ids,
+                                              hinv.abs().double())
+    err = (runs[0].double() - ref.double()).abs()
+    return {
+        "rel": float(torch.where(err == 0, 0.0, err / scale).max()),
+        "max_abs_err": float(err.max()),
+        "same_bits": torch.equal(runs[0], runs[1]),
+        "symmetric": torch.equal(runs[0], runs[0].mT),
+    }
+
+
+def self_blocks_times(a: dict, reps: int = 20) -> dict:
+    """Device ms of the preconditioner's self-blocks on
+    :func:`self_blocks_operands` ``a`` (:func:`device_ms`): through
+    ``ops.segmm.schur_self_blocks``'s kernel, and through the plain
+    composition (``optim.schur._plain_self_blocks``: the broadcast kernel
+    and eager PyTorch) on the blocks of :func:`matvec_operand_blocks`;
+    ``bytes``, what the kernel must move (every slot's id, each listed
+    slot's W, the Hll^-1 of each landmark its ids name, once, the (N, 6,
+    6) output), ``slot_bytes``, the same with Hll^-1 counted at every
+    listed slot that gathers it, and ``ops``, its rounded operations (216
+    a listed slot). Reads the listed slots and distinct landmarks on the
+    host."""
+    W, ids, hinv = a["W"], a["ids"], a["hinv"]
+    N, P = W.shape[1:]
+    M = hinv.shape[1]
+    ok = (ids >= 0) & (ids < M)
+    listed = int(ok.sum())
+    used = int(torch.unique(ids[ok]).numel())
+    blocks, _ = matvec_operand_blocks(a)
+    return {
+        "ms": device_ms(lambda: segmm.schur_self_blocks(W, ids, hinv), reps),
+        "plain_ms": device_ms(lambda: schur._plain_self_blocks(blocks),
+                              max(reps // 4, 2)),
+        "bytes": 4 * (N * P + 18 * listed + 6 * used + 36 * N),
+        "slot_bytes": 4 * (N * P + 24 * listed + 36 * N),
+        "ops": 216 * listed,
+    }
+
+
 # (N, D, free_pose (N, D)) of the CG trip kernel's checks: venice-mf's and
 # final-13682-mf's pose counts, at BA's D = 6 and VIO's D = 15.
 PCG_TRIP_CASES = [

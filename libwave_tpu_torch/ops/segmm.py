@@ -21,6 +21,9 @@ use and bound with ``ctypes``:
   matvec ``optim.schur.schur_matvec`` on pose-ELL blocks in four launches:
   ``W^T x`` per slot, the landmark reduce, the ``Hll^-1`` step, and one
   pose-side pass that gathers ``y``, applies W and sums a pose's slots;
+- :func:`schur_self_blocks` (``csrc/schur_precond.cu``): the per-pose self
+  terms ``sum W_s Hll^-1 W_s^T`` of the SCHUR_JACOBI preconditioner
+  (``optim.schur.schur_jacobi_preconditioner``) in one pass over W;
 - :func:`pcg_trip` (``csrc/schur_pcg.cu``): one trip of ``optim.schur.pcg``'s
   loop after its matvec (the step sizes, the x, r and p updates, the
   block-Jacobi apply and the dots) in one host call, the state kept on the
@@ -561,16 +564,26 @@ def _check_f32(what, named, device):
             raise ValueError(f"{what}: {name} must be contiguous")
 
 
-def _pose_shape_fault(W, x, free_pose):
-    """What of the pose-side shapes the matvec kernels do not take, as a
-    message, or None: W (18, N, Pmax) with N * Pmax < 2^31, x (N, D) with
-    D >= 6, free_pose (N,) or (N, D)."""
+def _w_shape_fault(W):
+    """What of W's shape the kernels that sweep pose-ELL blocks do not
+    take, as a message, or None: (18, N, Pmax) with N * Pmax < 2^31."""
     if W.dim() != 3 or W.shape[0] != _MATVEC_ROWS:
         return (f"W must be (Dj*3 = {_MATVEC_ROWS} rows, N, Pmax), got "
                 f"shape {tuple(W.shape)}")
     _, N, P = W.shape
     if N * P > _INT32_MAX:
         return f"at most 2^31 - 1 slots, got N={N}, Pmax={P}"
+    return None
+
+
+def _pose_shape_fault(W, x, free_pose):
+    """What of the pose-side shapes the matvec kernels do not take, as a
+    message, or None: W as :func:`_w_shape_fault` takes it, x (N, D) with
+    D >= 6, free_pose (N,) or (N, D)."""
+    fault = _w_shape_fault(W)
+    if fault is not None:
+        return fault
+    _, N, _ = W.shape
     D = x.shape[-1] if x.dim() == 2 else -1
     if x.dim() != 2 or x.shape[0] != N or D < _MATVEC_ROWS // 3:
         return (f"x must be (N={N}, D >= {_MATVEC_ROWS // 3}), got "
@@ -594,13 +607,11 @@ def takes_matvec(W, x, free_pose, Hpp, Hll_inv) -> bool:
                     for t in (W, x, free_pose, Hpp, Hll_inv)))
 
 
-def _check_pose_inputs(what, W, x, free_pose):
-    """W (18, N, P) float32 with contiguous (N, P) planes at any plane
-    stride, x and free_pose in the shapes :func:`_pose_shape_fault` takes,
-    float32, contiguous, on W's device. Returns (N, P, D, free_cols)."""
+def _check_w(what, W, fault):
+    """W float32, its shape without ``fault`` (a message or None), its
+    (N, Pmax) planes contiguous at any plane stride."""
     if W.dtype != torch.float32:
         raise TypeError(f"{what} on CUDA takes float32 W, got {W.dtype}")
-    fault = _pose_shape_fault(W, x, free_pose)
     if fault is not None:
         raise ValueError(f"{what}: {fault}")
     _, N, P = W.shape
@@ -608,6 +619,26 @@ def _check_pose_inputs(what, W, x, free_pose):
         raise ValueError(f"{what}: W's (N, Pmax) planes must be contiguous "
                          f"(strides (>= N*Pmax, Pmax, 1)), got strides "
                          f"{W.stride()}")
+
+
+def _check_ids(what, lm_idx, K, device):
+    """Slot ids ``lm_idx`` (K,) int32, contiguous, on ``device``."""
+    if tuple(lm_idx.shape) != (K,):
+        raise ValueError(f"{what}: lm_idx must be ({K},), got "
+                         f"{tuple(lm_idx.shape)}")
+    if lm_idx.dtype != torch.int32:
+        raise TypeError(f"{what}: lm_idx must be int32, got {lm_idx.dtype}")
+    if lm_idx.device != device or not lm_idx.is_contiguous():
+        raise ValueError(f"{what}: lm_idx must be contiguous on W's device "
+                         f"{device}")
+
+
+def _check_pose_inputs(what, W, x, free_pose):
+    """W (18, N, P) float32 with contiguous (N, P) planes at any plane
+    stride, x and free_pose in the shapes :func:`_pose_shape_fault` takes,
+    float32, contiguous, on W's device. Returns (N, P, D, free_cols)."""
+    _check_w(what, W, _pose_shape_fault(W, x, free_pose))
+    _, N, P = W.shape
     _check_f32(what, (("x", x), ("free_pose", free_pose)), W.device)
     D = x.shape[1]
     return N, P, D, 0 if free_pose.dim() == 1 else D
@@ -703,14 +734,7 @@ def matvec_pose_side(W: torch.Tensor, lm_idx: torch.Tensor, y: torch.Tensor,
     if tuple(Hpp.shape) != (N, D, D):
         raise ValueError(f"{what}: Hpp must be ({N}, {D}, {D}), got "
                          f"{tuple(Hpp.shape)}")
-    if tuple(lm_idx.shape) != (N * P,):
-        raise ValueError(f"{what}: lm_idx must be ({N * P},), got "
-                         f"{tuple(lm_idx.shape)}")
-    if lm_idx.dtype != torch.int32:
-        raise TypeError(f"{what}: lm_idx must be int32, got {lm_idx.dtype}")
-    if lm_idx.device != W.device or not lm_idx.is_contiguous():
-        raise ValueError(f"{what}: lm_idx must be contiguous on W's device "
-                         f"{W.device}")
+    _check_ids(what, lm_idx, N * P, W.device)
     _check_f32(what, (("y", y), ("Hpp", Hpp)), W.device)
     if W.device.type != "cuda":
         raise ValueError(f"{what}: unsupported device {W.device}")
@@ -720,6 +744,116 @@ def matvec_pose_side(W: torch.Tensor, lm_idx: torch.Tensor, y: torch.Tensor,
     _build.launch(_MATVEC_LIB, "matvec_pose_side_f32", W, W.stride(0),
                   lm_idx, y, M, Hpp, x, free_pose, free_cols, out, N, P, D)
     matvec_pose_side.launches += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# The SCHUR_JACOBI preconditioner's self-blocks (csrc/schur_precond.cu)
+# ---------------------------------------------------------------------------
+
+
+def tri_indices(D):
+    """Upper-triangle (i, j) pairs of a DxD symmetric block, row by row."""
+    return [(i, j) for i in range(D) for j in range(i, D)]
+
+
+def assemble_sym(comps, D):
+    """(T, ...) upper-triangle components in :func:`tri_indices` order ->
+    (..., D, D) symmetric blocks."""
+    rows = [[None] * D for _ in range(D)]
+    for c, (i, j) in zip(comps, tri_indices(D)):
+        rows[i][j] = c
+        rows[j][i] = c
+    return torch.stack([torch.stack(r, dim=-1) for r in rows], dim=-2)
+
+
+def self_terms(W: torch.Tensor, hk: torch.Tensor) -> torch.Tensor:
+    """Each slot's upper-triangle terms of ``W_s Hinv_s W_s^T``: ``W``
+    (Dj*3, ...) slot blocks, ``hk`` (6, ...) the slots' symmetric 3x3
+    components -> (Dj(Dj+1)/2, ...) in :func:`tri_indices` order, with T =
+    W Hinv formed first."""
+    Dj = W.shape[0] // 3
+    # T[i][l] = sum_j W[i, j] Hinv[j, l]
+    T = [
+        [
+            sum(W[i * 3 + j] * hk[_SYM3_AT[(j, l)]] for j in range(3))
+            for l in range(3)
+        ]
+        for i in range(Dj)
+    ]
+    # self[i, i'] = sum_l T[i, l] W[i', l]
+    return torch.stack(
+        [
+            sum(T[i][l] * W[i2 * 3 + l] for l in range(3))
+            for i, i2 in tri_indices(Dj)
+        ]
+    )
+
+
+def schur_self_blocks_reference(W: torch.Tensor, lm_idx: torch.Tensor,
+                                Hll_inv: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch per-pose Schur self-terms: ``out[n] = sum_p W_s
+    Hll_inv[lm_idx[s]] W_s^T``, ``s = n*Pmax + p``, ``W_s`` the slot's Dj x 3
+    block; ids outside ``[0, M)`` gather zeros. ``W`` (Dj*3, N, Pmax),
+    ``lm_idx`` (N*Pmax,), ``Hll_inv`` (6, M) symmetric components -> (N, Dj,
+    Dj), a pose's slots summed by ``torch.sum``."""
+    hk = seg_broadcast_reference(Hll_inv, lm_idx).reshape(
+        (6,) + tuple(W.shape[1:]))
+    return assemble_sym(torch.sum(self_terms(W, hk), dim=-1),
+                        W.shape[0] // 3)
+
+
+_PRECOND_LIB = _build.library("schur_precond", ("schur_precond.cu",), {
+    "schur_self_blocks_f32": dict(
+        argtypes=[_P, _LL, _P, _P, _I, _P, _I, _I, _P], restype=_I)})
+
+
+def takes_self_blocks(W, lm_idx, Hll_inv) -> bool:
+    """Whether the self-blocks kernel takes pose-ELL blocks ``W``, their
+    slot ids ``lm_idx`` and ``Hll_inv``: on the card, float32 W and Hll_inv,
+    W (18, N, Pmax) with N * Pmax < 2^31, int32 ids (N*Pmax,), Hll_inv (6, M)
+    with M < 2^31."""
+    return (W.is_cuda and _w_shape_fault(W) is None
+            and lm_idx.dtype == torch.int32
+            and tuple(lm_idx.shape) == (W.shape[1] * W.shape[2],)
+            and Hll_inv.dim() == 2 and Hll_inv.shape[0] == 6
+            and Hll_inv.shape[1] <= _INT32_MAX
+            and W.dtype == Hll_inv.dtype == torch.float32)
+
+
+@counts_launches
+def schur_self_blocks(W: torch.Tensor, lm_idx: torch.Tensor,
+                      Hll_inv: torch.Tensor) -> torch.Tensor:
+    """The per-pose Schur self-terms ``sum_p W_s Hll_inv[lm_idx[s]] W_s^T``
+    of the SCHUR_JACOBI preconditioner in one pass over W: ``W`` (18, N,
+    Pmax) pose-ELL blocks, slot ids ``lm_idx`` (N*Pmax,), ``Hll_inv`` (6, M)
+    -> (N, 6, 6), both triangles; ids outside ``[0, M)`` add nothing.
+
+    On CUDA this launches ``csrc/schur_precond.cu``'s kernel on the current
+    stream (float32; W as for :func:`matvec_wt_slots`, int32 ids and
+    Hll_inv contiguous) and counts it in ``schur_self_blocks.launches``;
+    other inputs raise. Each slot's terms round as the plain version's; a
+    pose's slots add in the kernel's fixed order, not ``torch.sum``'s. On
+    CPU it returns :func:`schur_self_blocks_reference`."""
+    if W.device.type == "cpu":
+        return schur_self_blocks_reference(W, lm_idx, Hll_inv)
+    what = "schur_self_blocks"
+    _check_w(what, W, _w_shape_fault(W))
+    _, N, P = W.shape
+    M = Hll_inv.shape[1] if Hll_inv.dim() == 2 else -1
+    if Hll_inv.dim() != 2 or Hll_inv.shape[0] != 6 or M > _INT32_MAX:
+        raise ValueError(f"{what}: Hll_inv must be (6, M < 2^31), got "
+                         f"{tuple(Hll_inv.shape)}")
+    _check_ids(what, lm_idx, N * P, W.device)
+    _check_f32(what, (("Hll_inv", Hll_inv),), W.device)
+    if W.device.type != "cuda":
+        raise ValueError(f"{what}: unsupported device {W.device}")
+    out = torch.empty((N, 6, 6), dtype=W.dtype, device=W.device)
+    if N == 0:
+        return out
+    _build.launch(_PRECOND_LIB, "schur_self_blocks_f32", W, W.stride(0),
+                  lm_idx, Hll_inv, M, out, N, P)
+    schur_self_blocks.launches += 1
     return out
 
 

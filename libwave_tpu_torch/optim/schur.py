@@ -52,9 +52,11 @@ import torch
 from libwave_tpu_torch.ops import segmm
 from libwave_tpu_torch.ops.segmm import (
     EllLayout,
+    assemble_sym as _assemble_sym,
     dense_g_a_window,
     project as _project,
     sym3_matvec,
+    tri_indices as _tri_indices,
     w_apply as _w_apply,
     w_t_apply as _w_t_apply,
 )
@@ -261,11 +263,6 @@ def inv3x3(A: torch.Tensor) -> torch.Tensor:
 
 # Symmetric-3x3 component order: [00, 01, 02, 11, 12, 22].
 _SYM3 = ((0, 0), (0, 1), (0, 2), (1, 1), (1, 2), (2, 2))
-_SYM3_AT = {  # (i, j) -> component index, both triangles
-    (0, 0): 0, (0, 1): 1, (0, 2): 2,
-    (1, 0): 1, (1, 1): 3, (1, 2): 4,
-    (2, 0): 2, (2, 1): 4, (2, 2): 5,
-}
 
 
 def sym3_inv(s):
@@ -299,20 +296,6 @@ def cho_inverse(A: torch.Tensor) -> torch.Tensor:
     )
     Linv = torch.linalg.solve_triangular(L, eye, upper=False)
     return Linv.mT @ Linv
-
-
-def _tri_indices(D):
-    """Upper-triangle (i, j) pairs for a DxD symmetric block."""
-    return [(i, j) for i in range(D) for j in range(i, D)]
-
-
-def _assemble_sym(comps, D):
-    """(T, N) upper-triangle components -> (N, D, D) symmetric blocks."""
-    rows = [[None] * D for _ in range(D)]
-    for c, (i, j) in zip(comps, _tri_indices(D)):
-        rows[i][j] = c
-        rows[j][i] = c
-    return torch.stack([torch.stack(r, dim=-1) for r in rows], dim=-2)
 
 
 def _embed_block(H, D):
@@ -710,28 +693,30 @@ def schur_rhs(blocks: SchurBlocks) -> torch.Tensor:
 
 def _schur_self_blocks(blocks: SchurBlocks) -> torch.Tensor:
     """Exact per-pose self terms ``sum_k W_k Hll_inv[lm_k] W_k^T`` as
-    (N, Dj, Dj) blocks — one sweep over the observation bank."""
+    (N, Dj, Dj) blocks, one sweep over the observation bank.
+
+    Unsharded pose-ELL blocks whose operands ``ops.segmm.takes_self_blocks``
+    accepts (on the card, float32, W of 18 rows) take its kernel, one launch
+    (counted as ``schur.precond_fused``); every other case (the CPU, the
+    flat layout, sharded blocks, f64) :func:`_plain_self_blocks`."""
+    if (blocks.ell is not None and blocks.axis_name is None
+            and segmm.takes_self_blocks(blocks.W, blocks.lm_idx,
+                                        blocks.Hll_inv)):
+        count("schur.precond_fused")
+        return segmm.schur_self_blocks(blocks.W, blocks.lm_idx,
+                                       blocks.Hll_inv)
+    return _plain_self_blocks(blocks)
+
+
+def _plain_self_blocks(blocks: SchurBlocks) -> torch.Tensor:
+    """:func:`_schur_self_blocks` as a composition of PyTorch operations
+    and the broadcast kernel, for every layout, dtype and sharding."""
     W = blocks.W
-    Dj = W.shape[0] // 3
     hk = segmm.seg_broadcast(blocks.Hll_inv, blocks.lm_idx)  # (6, K)
     if blocks.ell is not None:
         hk = hk.reshape((6,) + tuple(W.shape[1:]))
-    # T[i, l] = sum_j W[i, j] Hinv[j, l]
-    T = [
-        [
-            sum(W[i * 3 + j] * hk[_SYM3_AT[(j, l)]] for j in range(3))
-            for l in range(3)
-        ]
-        for i in range(Dj)
-    ]
-    # self[i, i'] = sum_l T[i, l] W[i', l]
-    self_k = torch.stack(
-        [
-            sum(T[i][l] * W[i2 * 3 + l] for l in range(3))
-            for i, i2 in _tri_indices(Dj)
-        ]
-    )
-    return _assemble_sym(_seg_pose(blocks, self_k), Dj)  # (N, Dj, Dj)
+    return _assemble_sym(_seg_pose(blocks, segmm.self_terms(W, hk)),
+                         W.shape[0] // 3)  # (N, Dj, Dj)
 
 
 def _free_mask(blocks: SchurBlocks, N, D):
@@ -743,19 +728,21 @@ def _free_mask(blocks: SchurBlocks, N, D):
 
 def schur_jacobi_preconditioner(blocks: SchurBlocks) -> torch.Tensor:
     """Inverted block diagonal of S (the SCHUR_JACOBI preconditioner):
-    P_i = (Hpp_i - sum_k W_k Hll_inv[lm_k] W_k^T)^{-1}, self-terms only."""
-    D = blocks.bp.shape[1]
-    sub = _embed_block(_schur_self_blocks(blocks), D)  # (N, D, D)
-    S_diag = blocks.Hpp - sub
-    # Gauge-fixed coordinates get identity rows/cols so CG stays
-    # well-defined on their (projected-out) subspace.
-    eye = torch.eye(D, dtype=S_diag.dtype, device=S_diag.device)
-    m = _free_mask(blocks, S_diag.shape[0], D)
-    S_diag = m[:, :, None] * S_diag * m[:, None, :]
-    S_diag = S_diag + eye * (1.0 - m)[..., None, :] * eye
-    # small diagonal lift for safety
-    S_diag = S_diag + 1e-10 * eye
-    return cho_inverse(S_diag)
+    P_i = (Hpp_i - sum_k W_k Hll_inv[lm_k] W_k^T)^{-1}, self-terms only.
+    Spanned as ``schur.preconditioner``."""
+    with span("schur.preconditioner"):
+        D = blocks.bp.shape[1]
+        sub = _embed_block(_schur_self_blocks(blocks), D)  # (N, D, D)
+        S_diag = blocks.Hpp - sub
+        # Gauge-fixed coordinates get identity rows/cols so CG stays
+        # well-defined on their (projected-out) subspace.
+        eye = torch.eye(D, dtype=S_diag.dtype, device=S_diag.device)
+        m = _free_mask(blocks, S_diag.shape[0], D)
+        S_diag = m[:, :, None] * S_diag * m[:, None, :]
+        S_diag = S_diag + eye * (1.0 - m)[..., None, :] * eye
+        # small diagonal lift for safety
+        S_diag = S_diag + 1e-10 * eye
+        return cho_inverse(S_diag)
 
 
 def _sym3_full(s):

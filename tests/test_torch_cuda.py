@@ -42,6 +42,13 @@ lies within ~50 * 2^-24 of the sum of the terms' magnitudes from the
 exact value, and the two within 1e-5 of it. All three are bit-identical
 across runs.
 
+The preconditioner's self-blocks kernel (``schur_self_blocks``) rounds each
+slot's 21 terms as its plain version does and adds a pose's slots in its
+own fixed order (a thread's slots, 5 shuffle levels, at most 16 warps),
+where the plain version's ``torch.sum`` takes another: each sum is a chain
+of at most ~40 rounded additions in either order, so the two agree within
+1e-5 of the sum of the terms' magnitudes; bit-identical across runs.
+
 The CG trip kernel (``pcg_trip``) rounds its elementwise steps as the
 plain version does and adds its three dots (p . Sp, r . z, r . r) in its
 own fixed order, where the plain version's ``torch.sum`` and ``einsum``
@@ -70,7 +77,7 @@ from libwave_tpu_torch.ops import _build, hamming, segmm
 from libwave_tpu_torch.optim import ba, schur
 from libwave_tpu_torch.pipelines import vio, visual_frontend
 from libwave_tpu_torch.sim import vo_dataset
-from libwave_tpu_torch.utils import precision
+from libwave_tpu_torch.utils import precision, trace
 
 
 @pytest.fixture
@@ -536,32 +543,44 @@ def test_small_matrix_free_solve_through_segment_kernels(cuda_device):
     cg = cfg.cg_max_iters
     before, mv_before = _launches(), _matvec_launches()
     trips_before = segmm.pcg_trip.launches
+    self_before = segmm.schur_self_blocks.launches
     _, info = ba.solve_ba(problem, state, cfg)
     # per LM iteration: Hll, bl, back-substitution and one reduce per CG
-    # step; schur_rhs's and the preconditioner's broadcasts; each CG step's
-    # matvec also W^T x, the Hll^-1 step and the pose side, which gathers
-    # itself
+    # step; schur_rhs's broadcast and the preconditioner's self-blocks
+    # kernel, which gathers Hll^-1 itself; each CG step's matvec also W^T x,
+    # the Hll^-1 step and the pose side, which gathers y itself
     grew = tuple(a - b for a, b in zip(_launches(), before))
-    assert grew == (0, 3 * (3 + cg), 3 * 2)
+    assert grew == (0, 3 * (3 + cg), 3 * 1)
+    assert segmm.schur_self_blocks.launches - self_before == 3
     assert tuple(a - b for a, b in zip(_matvec_launches(), mv_before)) == (
         3 * cg,) * 3
     with _plain_crossings():
         _, info_p = ba.solve_ba(problem, state, cfg)
-    assert _launches()[1:] == (before[1] + 3 * (3 + cg), before[2] + 3 * 2)
+    assert _launches()[1:] == (before[1] + 3 * (3 + cg), before[2] + 3 * 1)
     assert _matvec_launches() == tuple(b + 6 * cg for b in mv_before)
+    assert segmm.schur_self_blocks.launches - self_before == 6
     # every CG trip of both solves through the trip kernel, one call each
     assert segmm.pcg_trip.launches - trips_before == 6 * cg
     costs, costs_p = info["costs"].cpu().numpy(), info_p["costs"].cpu().numpy()
     assert np.isfinite(costs).all() and costs[-1] < float(info["initial_cost"])
     np.testing.assert_allclose(costs, costs_p, rtol=1e-3)
-    # the plain CG loop on the card: the same first iteration (later ones
-    # sit at this small problem's f32 floor, where the dots' order alone
-    # moves the cost by a few percent)
-    with mock.patch.object(schur, "_takes_fused_cg", return_value=False):
-        _, info_c = ba.solve_ba(problem, state, cfg)
-    assert segmm.pcg_trip.launches - trips_before == 6 * cg
-    np.testing.assert_allclose(costs[0], info_c["costs"].cpu().numpy()[0],
-                               rtol=1e-3)
+    # the plain CG loop on the card: the same first iteration as the trip
+    # kernel's loop (later ones sit at this small problem's f32 floor,
+    # where the dots' order alone moves the cost by a few percent). Both
+    # loops take the plain self-blocks here: this problem's f32 CG lies
+    # 0.1-3.8% from f64's in the first cost (seeds 0-3), whatever the
+    # preconditioner, and the self-blocks kernel's rounding, as close to
+    # f64 as the plain sweep's, moves the two loops' first costs 0.5% apart
+    # on this seed (test_pcg_with_the_fused_preconditioner holds the kernel
+    # to f64)
+    with mock.patch.object(segmm, "takes_self_blocks", return_value=False):
+        _, info_f = ba.solve_ba(problem, state, cfg)
+        with mock.patch.object(schur, "_takes_fused_cg",
+                               return_value=False):
+            _, info_c = ba.solve_ba(problem, state, cfg)
+    assert segmm.pcg_trip.launches - trips_before == 9 * cg
+    np.testing.assert_allclose(info_f["costs"].cpu().numpy()[0],
+                               info_c["costs"].cpu().numpy()[0], rtol=1e-3)
     # the fused matvec is as accurate as the plain one: each f32 matvec's
     # distance from the f64 one, within 2x the plain one's (or 2^-24)
     with precision.full_f32():
@@ -592,6 +611,66 @@ def test_matvec_kernels_match_plain(cuda_device, N, P, M, D, free_cols,
     assert err["same_bits"] and err["fixed_zero"], err
     assert err["wt_slots"]["equal"] and err["landmark_step"]["equal"], err
     assert err["pose_side"]["rel"] <= 1e-5, err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,P,M,strided,sequential",
+                         bench_problem.SELF_BLOCKS_CASES)
+def test_self_blocks_kernel_matches_plain(cuda_device, N, P, M, strided,
+                                          sequential):
+    """The preconditioner's self-blocks kernel against its plain version
+    (module docstring: within 1e-5 of the sum of its terms' magnitudes),
+    both triangles equal, one launch a call and the same bits on a second
+    run: both block widths (Pmax up to 512 and above), padding slots and
+    ids < 0 and >= M, a strided window view of a union's W, a sequential
+    capture's ids and venice-mf's whole shape."""
+    a = bench_problem.self_blocks_operands(N, P, M, strided, sequential,
+                                           device=cuda_device)
+    if strided:
+        assert not a["W"].is_contiguous()
+    before = segmm.schur_self_blocks.launches
+    err = bench_problem.self_blocks_errors(a)
+    assert segmm.schur_self_blocks.launches - before == 2
+    assert err["same_bits"] and err["symmetric"], err
+    assert err["rel"] <= 1e-5, err
+
+
+@pytest.mark.cuda
+def test_pcg_with_the_fused_preconditioner(cuda_device):
+    """``schur.pcg`` at a small problem's first linearization takes the
+    self-blocks kernel once (``schur.precond_fused``) and is as accurate as
+    the solve with the plain self-blocks: the same CG iterations, and its x
+    within 2x the plain one's distance from the f64 solve of the same
+    blocks (relative 2-norm; the fused solves' rule in chip_smoke.py's
+    witness). This problem's 20 f32 CG steps lie ~10% from f64's, and any
+    rounding of the operator moves them by ~0.2%: the two f32 solves are
+    held to f64, not to each other."""
+    problem, state = bench_problem.make_problem(
+        num_poses=20, num_landmarks=500, obs_per_pose=40, device=cuda_device)
+    cfg = bench_problem.bench_config(3)
+    with precision.full_f32():
+        blocks = ba._linearize_ba(problem, state, torch.tensor(
+            cfg.init_lambda, device=cuda_device))
+    rhs = schur.schur_rhs(blocks).contiguous()
+    before = segmm.schur_self_blocks.launches
+    with trace.recording() as rec:
+        cg = schur.pcg(blocks, rhs, cfg.cg_max_iters, cfg.cg_tol)
+    assert rec.counters["schur.precond_fused"] == 1
+    assert segmm.schur_self_blocks.launches - before == 1
+    with mock.patch.object(segmm, "takes_self_blocks", return_value=False):
+        cg_p = schur.pcg(blocks, rhs, cfg.cg_max_iters, cfg.cg_tol)
+    assert segmm.schur_self_blocks.launches - before == 1
+    wide = blocks._replace(**{f: getattr(blocks, f).double() for f in (
+        "Hpp", "Hll_inv", "W", "bp", "bl", "free_pose", "C")})
+    x64 = schur.pcg(wide, schur.schur_rhs(wide).contiguous(),
+                    cfg.cg_max_iters, cfg.cg_tol).x
+    assert segmm.schur_self_blocks.launches - before == 1
+
+    def gap(x):
+        return float((x.double() - x64).norm() / x64.norm())
+
+    assert int(cg.iterations) == int(cg_p.iterations)
+    assert gap(cg.x) <= 2 * gap(cg_p.x), (gap(cg.x), gap(cg_p.x))
 
 
 @pytest.mark.cuda
@@ -1336,7 +1415,8 @@ def test_sharded_one_rank_nccl_equals_single_device(cuda_device, tmp_path):
     """``solve_ba_sharded`` over a one-rank NCCL group (its collectives go
     through NCCL) gives the single-device ``solve_ba``'s numbers bit for
     bit, with the same segment launches, when that solve also takes the
-    plain matvec (the fused one sums in another order)."""
+    plain matvec and the plain self-blocks (the fused ones sum in other
+    orders)."""
     import torch.distributed as dist
 
     from libwave_tpu_torch.parallel import (
@@ -1364,9 +1444,11 @@ def test_sharded_one_rank_nccl_equals_single_device(cuda_device, tmp_path):
         sharded_launches = segmm.seg_reduce_sorted.launches - before
     finally:
         dist.destroy_process_group()
-    # sharded blocks take the plain matvec: so does the reference here
+    # sharded blocks take the plain matvec and self-blocks: so does the
+    # reference here
     before = segmm.seg_reduce_sorted.launches
-    with mock.patch.object(schur, "_takes_fused_matvec", return_value=False):
+    with mock.patch.object(schur, "_takes_fused_matvec", return_value=False), \
+            mock.patch.object(segmm, "takes_self_blocks", return_value=False):
         ref, rinfo = ba.solve_ba(problem, state, cfg)
     assert segmm.seg_reduce_sorted.launches - before == sharded_launches
     assert torch.equal(info["costs"], rinfo["costs"])

@@ -539,6 +539,103 @@ def test_matvec_dispatch(case, lin, rng):
     assert torch.equal(got, ts.schur_matvec(bt, x))
 
 
+def _self_blocks_as_written(blocks):
+    """``schur._schur_self_blocks`` as it was written before the
+    preconditioner's self-blocks had a kernel: the oracle of the plain
+    composition and of the kernel's plain version."""
+    W = blocks.W
+    Dj = W.shape[0] // 3
+    hk = segmm.seg_broadcast(blocks.Hll_inv, blocks.lm_idx)
+    if blocks.ell is not None:
+        hk = hk.reshape((6,) + tuple(W.shape[1:]))
+    at = {(0, 0): 0, (0, 1): 1, (0, 2): 2, (1, 0): 1, (1, 1): 3, (1, 2): 4,
+          (2, 0): 2, (2, 1): 4, (2, 2): 5}
+    T = [[sum(W[i * 3 + j] * hk[at[(j, l)]] for j in range(3))
+          for l in range(3)] for i in range(Dj)]
+    pairs = [(i, j) for i in range(Dj) for j in range(i, Dj)]
+    self_k = torch.stack([sum(T[i][l] * W[i2 * 3 + l] for l in range(3))
+                          for i, i2 in pairs])
+    sums = ts._seg_pose(blocks, self_k)
+    rows = [[None] * Dj for _ in range(Dj)]
+    for c, (i, j) in zip(sums, pairs):
+        rows[i][j] = rows[j][i] = c
+    return torch.stack([torch.stack(r, dim=-1) for r in rows], dim=-2)
+
+
+@pytest.mark.parametrize("D,dtype,free_cols,strided", [
+    (6, torch.float64, False, False),
+    (6, torch.float32, False, True),
+    (6, torch.float32, True, False),
+    (15, torch.float32, True, True),
+    (15, torch.float64, False, True),
+])
+def test_self_blocks_plain_equals_the_sweep_as_written(D, dtype, free_cols,
+                                                       strided, lin, rng):
+    """The preconditioner's self-blocks on the CPU: ``_schur_self_blocks``
+    (its plain composition), ``_plain_self_blocks`` and the kernel
+    wrapper's plain version ``segmm.schur_self_blocks`` all give the sweep
+    as it was written before, bit for bit: pose-ELL blocks with padding
+    slots, D = 6 and 15, f32 and f64, and W as a batched window's strided
+    view. No launch, no fused call counted."""
+    bt = _port_blocks(lin, rng, D=D, dtype=dtype, free_cols=free_cols)
+    if strided:
+        big = torch.zeros((18, 3 * N) + tuple(bt.W.shape[2:]), dtype=dtype)
+        big[:, N:2 * N] = bt.W
+        bt = bt._replace(W=big[:, N:2 * N])
+    want = _self_blocks_as_written(bt)
+    with trace.recording() as rec:
+        got = ts._schur_self_blocks(bt)
+    assert rec.counters["schur.precond_fused"] == 0
+    assert rec.counters["launches.schur_self_blocks"] == 0
+    assert got.shape == (N, 6, 6) and got.dtype == dtype
+    assert torch.equal(got, want)
+    assert torch.equal(ts._plain_self_blocks(bt), want)
+    assert torch.equal(segmm.schur_self_blocks(bt.W, bt.lm_idx, bt.Hll_inv),
+                       want)
+
+
+@pytest.mark.parametrize("case", ["card_ell", "card_window", "cpu", "flat",
+                                  "sharded", "f64", "rows"])
+def test_preconditioner_dispatch(case, lin, rng):
+    """Which path the SCHUR_JACOBI preconditioner's self-blocks take, read
+    from ``segmm.takes_self_blocks`` and the ``schur.precond_fused``
+    counter inside a recording: only unsharded float32 pose-ELL blocks with
+    18 W rows on the card (a batched window's strided view of W too) take
+    the kernel. The card is stood in for by ``Tensor.is_cuda`` (the
+    wrapper still sees CPU tensors and runs its plain version: no launch);
+    the CPU, the flat layout, sharded blocks, f64 and W of 15 rows take the
+    plain composition. Every case gives the unpatched preconditioner's
+    numbers bit for bit (NaN in the same cells)."""
+    from libwave_tpu_torch.parallel.mesh import Axis
+
+    bt = _port_blocks(
+        lin, rng, layout="flat" if case == "flat" else "ell",
+        dtype=torch.float64 if case == "f64" else torch.float32,
+        axis_name=Axis("dp", 1, 0) if case == "sharded" else None)
+    if case == "rows":  # W touching 5 pose coordinates
+        bt = bt._replace(W=bt.W[:15])
+    if case == "card_window":
+        big = torch.zeros((18, 3 * N) + tuple(bt.W.shape[2:]))
+        big[:, N:2 * N] = bt.W
+        bt = bt._replace(W=big[:, N:2 * N])
+    card = (contextlib.nullcontext() if case == "cpu" else
+            mock.patch.object(torch.Tensor, "is_cuda",
+                              new_callable=mock.PropertyMock,
+                              return_value=True))
+    fused = case in ("card_ell", "card_window")
+    with card, trace.recording() as rec:
+        takes = segmm.takes_self_blocks(bt.W, bt.lm_idx, bt.Hll_inv)
+        got = ts.schur_jacobi_preconditioner(bt)
+    assert takes == (fused or case == "sharded")  # sharded: by the layout
+    assert rec.counters["schur.precond_fused"] == fused
+    for w in trace.counted_wrappers():
+        assert rec.counters[f"launches.{w}"] == 0
+    # (random blocks: some poses' S blocks are not positive definite and
+    # invert to NaN, in the same cells)
+    torch.testing.assert_close(got, ts.schur_jacobi_preconditioner(bt),
+                               rtol=0, atol=0, equal_nan=True)
+
+
 def _meta(*shape, dtype=torch.float32):
     return torch.empty(shape, dtype=dtype, device="meta")
 
@@ -552,11 +649,13 @@ def _matvec_args():
         step=(_meta(6, M_), _meta(3, M_)),
         pose=(_meta(18, N_, P), _meta(N_ * P, dtype=torch.int32),
               _meta(3, M_), _meta(N_, D, D), _meta(N_, D), _meta(N_, D)),
+        self=(_meta(18, N_, P), _meta(N_ * P, dtype=torch.int32),
+              _meta(6, M_)),
     )
 
 
 _WRAPPERS = dict(wt=segmm.matvec_wt_slots, step=segmm.matvec_landmark_step,
-                 pose=segmm.matvec_pose_side)
+                 pose=segmm.matvec_pose_side, self=segmm.schur_self_blocks)
 
 # (wrapper, argument index, replacement, exception, message)
 _MATVEC_BAD = [
@@ -578,15 +677,26 @@ _MATVEC_BAD = [
     ("pose", 3, lambda h: h[:, :6, :6], ValueError, "Hpp"),
     ("pose", 3, lambda h: h.transpose(1, 2), ValueError, "contiguous"),
     ("pose", 4, lambda x: x[:3], ValueError, "x must be"),
+    ("self", 0, lambda W: W.double(), TypeError, "float32 W"),
+    ("self", 0, lambda W: W[:12], ValueError, "rows"),
+    ("self", 0, lambda W: W.transpose(1, 2).contiguous().transpose(1, 2),
+     ValueError, "planes"),
+    ("self", 1, lambda i: i.long(), TypeError, "int32"),
+    ("self", 1, lambda i: i[:-1], ValueError, "lm_idx"),
+    ("self", 1, lambda i: torch.empty(i.shape, dtype=i.dtype), ValueError,
+     "device"),
+    ("self", 2, lambda h: h[:5], ValueError, "Hll_inv"),
+    ("self", 2, lambda h: h.double(), TypeError, "Hll_inv"),
+    ("self", 2, lambda h: h.T.contiguous().T, ValueError, "contiguous"),
 ]
 
 
-@pytest.mark.parametrize("case", range(len(_MATVEC_BAD) + 3))
+@pytest.mark.parametrize("case", range(len(_MATVEC_BAD) + len(_WRAPPERS)))
 def test_matvec_wrappers_raise_on_what_the_kernels_do_not_take(case):
-    """The matvec wrappers check every input before a launch and raise on
-    what the kernels do not take; well-formed inputs off the CPU and off
-    the card (the meta device) pass the checks and raise only for the
-    device."""
+    """The matvec wrappers and the preconditioner's self-blocks wrapper
+    check every input before a launch and raise on what the kernels do not
+    take; well-formed inputs off the CPU and off the card (the meta device)
+    pass the checks and raise only for the device."""
     args = _matvec_args()
     if case >= len(_MATVEC_BAD):
         name = list(_WRAPPERS)[case - len(_MATVEC_BAD)]
@@ -708,6 +818,9 @@ def test_cg_dispatch(case, lin, rng):
     assert trips == 12
     fused = case in ("card", "explicit_s", "d15")
     assert rec.counters["schur.cg_fused"] == (trips if fused else 0)
+    # the matrix-free preconditioner's self-blocks through their kernel;
+    # explicit S reads its preconditioner off S
+    assert rec.counters["schur.precond_fused"] == (case in ("card", "d15"))
     assert rec.counters["launches.pcg_trip"] == 0
     want = ts.pcg(bt, b, max_iters=12, tol=1e-10, S4=S4)
     for a, w in zip(got, want):

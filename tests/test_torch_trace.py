@@ -46,6 +46,7 @@ def test_spans_nest_with_one_solve_id_per_solve():
         "ba.solve": 2, "ba.iteration": 2 * ITERATIONS,
         "ba.cost": 2 * (1 + ITERATIONS),
         "schur.matvec": 2 * ITERATIONS * CG,
+        "schur.preconditioner": 2 * ITERATIONS,
         **{n: 2 * ITERATIONS for n in PER_ITERATION}})
     roots = [i for i, s in enumerate(spans) if s.parent is None]
     assert [spans[i].name for i in roots] == ["ba.solve", "ba.solve"]
@@ -55,6 +56,7 @@ def test_spans_nest_with_one_solve_id_per_solve():
     parent_of = {"ba.iteration": "ba.solve", "ba.linearize": "ba.iteration",
                  "schur.rhs": "ba.iteration", "schur.pcg": "ba.iteration",
                  "schur.matvec": "schur.pcg",
+                 "schur.preconditioner": "schur.pcg",
                  "schur.back_substitute": "ba.iteration",
                  "ba.update": "ba.iteration"}
     for i, s in enumerate(spans):
